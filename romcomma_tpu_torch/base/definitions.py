@@ -15,6 +15,8 @@ downstream cannot afford (the counterpart of the JAX package's
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +56,25 @@ def TORCH_FLOAT() -> torch.dtype:
     return torch.float32 if _F32_MODE else torch.float64
 
 
+_PINNED: Optional[torch.device] = None
+
+
 def device() -> torch.device:
-    """The compute device: the current CUDA device when there is one, else the CPU."""
+    """The compute device: the one pinned by ``pinned_device`` (as
+    ``user.contexts.Environment`` does), else the current CUDA device when
+    there is one, else the CPU."""
+    if _PINNED is not None:
+        return _PINNED
     return torch.device('cuda') if torch.cuda.is_available() else torch.device('cpu')
+
+
+@contextmanager
+def pinned_device(pinned: torch.device):
+    """Make ``device()`` return `pinned` for the body, then restore the
+    previous choice."""
+    global _PINNED
+    previous, _PINNED = _PINNED, pinned
+    try:
+        yield
+    finally:
+        _PINNED = previous

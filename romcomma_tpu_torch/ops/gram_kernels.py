@@ -4,7 +4,9 @@ grams built on it.
 Counterpart of ``romcomma_tpu/ops/pallas_kernels.py``. The TPU tile kernel
 ``_gram_kernel`` becomes the hand-written CUDA C++ kernel in
 ``csrc/unit_gram.cu`` (built for ``sm_90a`` by nvcc at first use, loaded with
-ctypes). The differentiable core is
+ctypes): a pack pre-pass splits each operand for a 3xTF32 ``wgmma`` cross
+term, and persistent CTAs store the tiles with TMA (see the note at the top
+of the source). The differentiable core is
 
     unit_gram(u, v)[a, b] = exp(-1/2 |u_a - v_b|^2)
 
@@ -22,6 +24,7 @@ always launches the kernel, or raises: there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,7 +46,8 @@ LAUNCHES = 0
 
 _LIBRARY = None
 _INT_MAX = 2 ** 31 - 1
-_GRID_Y_MAX = 65535 * 64        # the kernel's B tiles run on grid.y
+#: The kernel's packed operand layout: 128-row blocks, M in chunks of 32.
+BLOCK_ROWS, CHUNK = 128, 32
 
 
 def _nvcc() -> str:
@@ -71,9 +75,8 @@ def _library() -> ctypes.CDLL:
     global _LIBRARY
     if _LIBRARY is None:
         library = ctypes.CDLL(str(build()))
-        library.unit_gram_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_void_p]
+        library.unit_gram_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         library.unit_gram_f32.restype = ctypes.c_int
         _LIBRARY = library
     return _LIBRARY
@@ -99,9 +102,33 @@ def _check(t: torch.Tensor, name: str):
         raise ValueError(f'unit_gram kernel: {name} must be contiguous.')
 
 
+def scratch_floats(rows: int, M: int) -> int:
+    """Floats of packed scratch the kernel needs for one operand of `rows`
+    rows: the tf32 hi and lo parts of every 128-row block, chunk by chunk,
+    then one squared norm per padded row."""
+    blocks = -(-rows // BLOCK_ROWS)
+    return blocks * (-(-M // CHUNK) * 2 * BLOCK_ROWS * CHUNK + BLOCK_ROWS)
+
+
+#: The kernel's packed scratch, one buffer per (device, stream), kept and
+#: grown as calls need: calls on one stream run in order, so each may reuse
+#: it. A second allocation per call would add to the wrapper's host time,
+#: which at the main path's smaller shape is close to the kernel's own.
+_SCRATCH: dict = {}
+
+
+def _scratch(index: int, stream: int, floats: int) -> torch.Tensor:
+    buffer = _SCRATCH.get((index, stream))
+    if buffer is None or buffer.numel() < floats:
+        buffer = _SCRATCH[(index, stream)] = torch.empty(
+            floats, dtype=torch.float32, device=torch.device('cuda', index))
+    return buffer
+
+
 def unit_gram_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream: u (A,M), v (B,M)
-    float32, contiguous, on one CUDA device -> (A,B) float32."""
+    float32, contiguous, on one CUDA device -> (A,B) float32. When u and v
+    are one tensor, it is packed once."""
     global LAUNCHES
     _check(u, 'u')
     _check(v, 'v')
@@ -111,19 +138,25 @@ def unit_gram_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if v.shape[1] != M or M < 1:
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)} and {tuple(v.shape)} '
                          'need one common, non-empty M.')
-    if max(A * M, B * M) > _INT_MAX or B > _GRID_Y_MAX:
+    if max(A * M, B * M) > _INT_MAX:
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)}, {tuple(v.shape)} '
-                         'exceed the kernel\'s 32-bit indexing or grid.')
-    out = torch.empty((A, B), dtype=torch.float32, device=u.device)
+                         'exceed the kernel\'s 32-bit indexing.')
     if A == 0 or B == 0:
-        return out
+        return torch.empty((A, B), dtype=torch.float32, device=u.device)
     library = _library()
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        error = library.unit_gram_f32(u.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                      A, B, M, stream)
+    out = torch.empty((A, B), dtype=torch.float32, device=u.device)
+    shared = u.data_ptr() == v.data_ptr() and A == B
+    at_v = 0 if shared else -(-scratch_floats(A, M) // 64) * 64   # 256-byte aligned
+    # The C entry launches on the current device; switch only when u is elsewhere.
+    index = u.device.index
+    with contextlib.nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index):
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        base = _scratch(index, stream, at_v + scratch_floats(B, M)).data_ptr()
+        error = library.unit_gram_f32(u.data_ptr(), v.data_ptr(), base, base + 4 * at_v,
+                                      out.data_ptr(), A, B, M, stream)
     if error != 0:
-        raise RuntimeError(f'unit_gram kernel launch failed with CUDA error {error}.')
+        raise RuntimeError(f'unit_gram kernel launch failed with CUDA error {error} '
+                           '(-1: CUDA refused the output\'s TMA descriptor).')
     LAUNCHES += 1
     return out
 
@@ -159,9 +192,12 @@ def unit_gram(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def rbf_gram_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
                     variance: torch.Tensor) -> torch.Tensor:
     """Single-output ARD-RBF gram variance * unit_gram(x1/ls, x2/ls): (A,B).
-    lengthscales (M,) or scalar; variance scalar. Differentiable in all four."""
+    lengthscales (M,) or scalar; variance scalar. Differentiable in all four.
+    A training gram (x1 is x2) scales its inputs once and hands the kernel one
+    tensor; autograd then sums the two input gradients into it."""
     ls = torch.broadcast_to(lengthscales, (x1.shape[-1],))
-    return variance * unit_gram((x1 / ls).contiguous(), (x2 / ls).contiguous())
+    u = (x1 / ls).contiguous()
+    return variance * unit_gram(u, u if x2 is x1 else (x2 / ls).contiguous())
 
 
 def rbf_gram_variant_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,

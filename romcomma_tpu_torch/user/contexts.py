@@ -36,28 +36,30 @@ def Environment(name: str = '', device: str = '', profile_dir: Optional[str] = N
 
     Args:
         name: Printed label.
-        device: 'CPU' / 'GPU' / '' (automatic). The port computes on the device
-            that base.definitions.device() resolves (CUDA when present); a
-            request it cannot honour raises.
+        device: 'CPU' / 'GPU' / '' (automatic: CUDA when present, else the
+            CPU). The port computes on that device for the body
+            (base.definitions.device() returns it) and on the previous one
+            after. Asking for 'GPU' where there is no CUDA device raises.
         profile_dir: If given, a torch.profiler trace is written there.
     """
-    from romcomma_tpu_torch.base.definitions import FLOAT, device as compute_device
+    from romcomma_tpu_torch.base.definitions import FLOAT, device as compute_device, pinned_device
     with Timer(name):
-        resolved = compute_device()
         d = device.upper()
-        wanted = 'cpu' if 'CPU' in d else 'cuda' if 'GPU' in d else resolved.type
-        if wanted != resolved.type:
-            raise RuntimeError(f'Environment asked for {device!r}, but the compute device '
-                               f'is {resolved}.')
-        print(f' using torch({resolved}, working dtype={FLOAT().name})...', flush=True)
-        if profile_dir:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if resolved.type == 'cuda':
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            with torch.profiler.profile(
-                    activities=activities,
-                    on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir)):
+        if 'GPU' in d and not torch.cuda.is_available():
+            raise RuntimeError(f'Environment asked for {device!r}, but there is no CUDA device '
+                               'to compute on.')
+        wanted = (torch.device('cpu') if 'CPU' in d else torch.device('cuda') if 'GPU' in d
+                  else compute_device())
+        with pinned_device(wanted):
+            print(f' using torch({wanted}, working dtype={FLOAT().name})...', flush=True)
+            if profile_dir:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if wanted.type == 'cuda':
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                with torch.profiler.profile(
+                        activities=activities,
+                        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir)):
+                    yield
+            else:
                 yield
-        else:
-            yield
         print('...Running ' + name, end='')

@@ -97,6 +97,66 @@ def test_cpu_tensors_take_the_plain_path():
     assert not gram._use_kernel(x, x)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, ties away from 0."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's 3xTF32 cross term a.b: hi.hi in one float32 accumulator and
+    hi.lo + lo.hi in another (products and sums in float64 here: the split's
+    own error, without the tensor cores' accumulation), added in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    big = (ah.double() @ bh.double().T).float()
+    small = (ah.double() @ bl.double().T + al.double() @ bh.double().T).float()
+    return big + small
+
+
+def _split_unit_gram(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """E as the kernel forms it: squared norms from the same split cross term
+    (each row against itself), the exponent in one float32 rounding (fma)."""
+    uu, vv = torch.diagonal(_split_cross(u, u)), torch.diagonal(_split_cross(v, v))
+    sqd = ((uu[:, None] + vv[None, :]).double() - 2.0 * _split_cross(u, v).double()).float()
+    return torch.exp(-0.5 * torch.clamp(sqd, min=0.0).double())
+
+
+def _split_cases(case: str, rng: np.random.Generator):
+    """u, v at the kernel tests' scale, or at main-path magnitudes: x/ls with
+    x standard normal (the normalized inputs), ls in [0.5, 5], M = 30."""
+    if case == 'test scale':
+        return [rng.normal(size=(n, 30)) * 1.5 / np.sqrt(30) for n in (300, 200)]
+    ls = rng.uniform(0.5, 5.0, 30)
+    x = rng.normal(size=(300, 30))
+    other = {'main, u is v': x, 'main, two operands': rng.normal(size=(200, 30)),
+             'main, near pairs': x + 1e-2 * rng.normal(size=x.shape)}[case]
+    return [x / ls, other / ls]
+
+
+@pytest.mark.parametrize('case', ['test scale', 'main, two operands', 'main, u is v',
+                                  'main, near pairs'])
+def test_split_cross_term_holds_float32_accuracy(case):
+    """The kernel's 3xTF32 cross term with matching norms, emulated: E stays
+    within 2e-6 of the float64 E, or, where the plain float32 version itself
+    errs by more (near pairs at main-path magnitudes, whose |u|^2 reach ~120),
+    no further from it than that version."""
+    u, v = (torch.tensor(a, dtype=torch.float32) for a in _split_cases(case, np.random.default_rng(9)))
+    exact = gram_kernels.unit_gram_plain(u.double(), v.double())
+    split = (_split_unit_gram(u, v) - exact).abs().max().item()
+    plain = (gram_kernels.unit_gram_plain(u, v).double() - exact).abs().max().item()
+    assert split <= max(VALUE_TOL, plain), (split, plain)
+    if case == 'main, u is v':
+        assert torch.all(torch.diagonal(_split_unit_gram(u, u)) == 1.0)
+
+
+def test_scratch_matches_the_kernels_packed_layout():
+    """Per operand: hi and lo (2 x 128 x 32 floats) per 128-row block and
+    32-column chunk, then one norm per padded row."""
+    assert gram_kernels.scratch_floats(8192, 30) == 64 * (8192 + 128)
+    assert gram_kernels.scratch_floats(4097, 30) == 33 * (8192 + 128)
+    assert gram_kernels.scratch_floats(37, 70) == 3 * 8192 + 128
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((4, 3))
     with pytest.raises(ValueError, match='CUDA'):

@@ -17,7 +17,10 @@ from romcomma_tpu_torch.ops import gram, gram_kernels
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(37, 61, 5), (4096, 4096, 30), (8192, 8192, 30)]
+#: Ragged tiles, unaligned B (masked stores), M > 32 (several chunks), and the
+#: main path's shapes (TMA stores).
+SHAPES = [(37, 61, 5), (150, 150, 7), (4097, 4095, 30), (513, 1000, 70), (4096, 4096, 30),
+          (8192, 8192, 30)]
 
 #: Forward: both sides compute |u|^2 + |v|^2 - 2 u.v in float32 from inputs
 #: whose squared norms stay below ~10, so the exponent differs by a few float32
@@ -66,6 +69,45 @@ def test_backward_matches_plain(cuda, A, B, M):
     for got, want in zip(*grads):
         scale = want.abs().max().item()
         torch.testing.assert_close(got, want, rtol=0.0, atol=GRAD_RTOL * scale)
+
+
+@pytest.mark.parametrize('A, M', [(150, 7), (1000, 70), (4096, 30), (8192, 30)])
+def test_one_operand(cuda, A, M):
+    """A training gram hands the kernel one tensor (u is v): it is packed once,
+    the diagonal is exactly 1, and autograd sums both input gradients."""
+    u, _ = _inputs(A, 1, M, cuda, seed=4)
+    before = gram_kernels.LAUNCHES
+    got = gram_kernels.unit_gram_cuda(u, u)
+    torch.cuda.synchronize()
+    assert gram_kernels.LAUNCHES == before + 1
+    torch.testing.assert_close(got, gram_kernels.unit_gram_plain(u, u), rtol=VALUE_TOL,
+                               atol=VALUE_TOL)
+    assert torch.all(torch.diagonal(got) == 1.0)
+    gbar = torch.randn(A, A, generator=torch.Generator().manual_seed(5)).to(cuda)
+    grads = []
+    for fn in (gram_kernels.unit_gram, gram_kernels.unit_gram_plain):
+        uu = u.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(torch.sum(fn(uu, uu) * gbar), uu)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=0.0,
+                               atol=GRAD_RTOL * grads[1].abs().max().item())
+
+
+def test_calls_on_two_streams_and_of_changing_size(cuda):
+    """Each stream keeps its own packed scratch, grown as calls need, and each
+    output gets a store descriptor of its own: calls that alternate streams,
+    shapes and live outputs all stay right."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [_inputs(A, B, M, cuda, seed=A) for A, B, M in
+              [(256, 512, 30), (4096, 4096, 30), (256, 512, 30), (300, 128, 70)]]
+    torch.cuda.synchronize()
+    outs = []
+    for i, (u, v) in enumerate(inputs * 2):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(gram_kernels.unit_gram_cuda(u, v))
+    torch.cuda.synchronize()
+    for (u, v), got in zip(inputs * 2, outs):
+        torch.testing.assert_close(got, gram_kernels.unit_gram_plain(u, v), rtol=VALUE_TOL,
+                                   atol=VALUE_TOL)
 
 
 def test_dispatch_sends_only_float32_cuda_to_the_kernel(cuda):

@@ -138,8 +138,21 @@ def test_predictions_match_romcomma_tpu(trained, tmp_path):
             np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-10)
 
 
-def test_environment_refuses_a_device_it_cannot_give():
-    wanted = 'CPU' if torch.cuda.is_available() else 'GPU'
-    with pytest.raises(RuntimeError, match='compute device'):
+@pytest.mark.parametrize('wanted, has_card', [('GPU', False), ('CPU', True)],
+                         ids=['GPU-without-a-card-raises', 'CPU-with-a-card-pins-the-CPU'])
+def test_environment_refuses_a_device_it_cannot_give(monkeypatch, wanted, has_card):
+    """Environment refuses a device it cannot give (a GPU where there is no
+    card) and gives one it can: the CPU where there is a card, for its body
+    only."""
+    from romcomma_tpu_torch.base.definitions import device
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: has_card)
+    before = device()
+    if not has_card:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            with user.contexts.Environment('port', device=wanted):
+                pass
+    else:
+        assert before == torch.device('cuda')
         with user.contexts.Environment('port', device=wanted):
-            pass
+            assert device() == torch.device('cpu')
+    assert device() == before
