@@ -18,7 +18,19 @@ Phases (each prints its result and its time; none catches its own failure):
      MOGP, isotropic then anisotropic, maxiter=50, tested), in float32, so the
      training grams go through the kernel; then the checks that the run went
      through the kernel and that its LMLs match the float64 plain path;
-  5. a profile of one float32 LML value-and-gradient at N=4096 and N=8192.
+  5. a profile of one float32 LML value-and-gradient at N=4096 and N=8192;
+  6. the GSA on the card: run.gsa (all three kinds, standard errors,
+     non-partial T, float64) on phase 4's trained repository (3 folds,
+     N = 4096, 4096, 8192, M=30, L=3), with the checks that every S/V/T/W
+     is written and finite, the full slice's S has a unit diagonal, CLOSED S
+     grows with m and T >= 0; each fold's time and its V-pass / W-T-sweep /
+     psi-solve split, the chunk counts, peak device memory, and the top
+     device kernels of one N=4096 fold (torch.profiler); then the port's
+     installation test on the card, held within ULP_SPREADS of a one-ulp
+     spread to its GSA on the CPU from the card's float64 inputs, to its
+     own chunk loops against one chunk, to run.gsa on a copy of the trained
+     tree on the CPU, and to the CPU's posterior and GSA from the card's
+     float32 parameters.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's. Exits non-zero, printing no result, where there is no CUDA device
@@ -36,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -265,7 +278,7 @@ def main_path(torch, user, gram_kernels):
             require(bool((error <= bound).all()), (k, name, error, bound))
     summary = repo.folder / 'gpr.v.a' / 'test_summary.csv'
     print(f'test_summary (anisotropic, all folds):\n{summary.read_text()}', flush=True)
-    return launches, seconds, worst
+    return repo, launches, seconds, worst
 
 
 def np_seed(seed: int):
@@ -314,6 +327,335 @@ def profile_value_and_grad(torch):
                   flush=True)
 
 
+GSA_OPTIONS = dict(is_covariant=False, is_isotropic=False, is_error_calculated=True,
+                   is_T_partial=False)
+KINDS = ('first_order', 'closed', 'total')
+
+
+@contextmanager
+def gsa_records(torch, keep_inputs=False):
+    """Record, for each fold that run.gsa computes, its GSA wall-clock
+    (posterior factors, calibrator set-up and every slice of every kind), the
+    calibrator's interval timings and chunk counts, and its results on the
+    host, and with keep_inputs its float64 inputs (F, K_cho, K_inv_Y, Lambda,
+    X) too, and K^-1 y among its results. run.gsa is left as it is; the record wraps the two functions it
+    reaches, and restores them on exit."""
+    from romcomma_tpu_torch.gsa import calibrators
+    from romcomma_tpu_torch.user import run
+    records = []
+    marginalize, intervals = run.marginalize_all_kinds, calibrators.ClosedSobolWithError.marginalize_intervals
+
+    def timed_intervals(cal, slices):
+        out = intervals(cal, slices)
+        records.append({'N': cal.N, 'V0_chunk': cal._auto_n_chunk(),
+                        'timings': dict(cal.last_interval_timings)})
+        return out
+
+    def timed_marginalize(gp, *args, **kwargs):
+        t0 = time.perf_counter()
+        by_kind, extras = marginalize(gp, *args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        records[-1]['seconds'] = time.perf_counter() - t0
+        records[-1]['results'] = ({kind: {k: v.cpu().numpy() for k, v in out.items()}
+                                   for kind, out in by_kind.items()},
+                                  {k: v.cpu().numpy() for k, v in extras.items()})
+        if keep_inputs:      # gp's posterior factors are cached: no second Cholesky
+            records[-1]['inputs'] = {k: v.cpu() for k, v in
+                                     calibrators.ClosedSobol.gather_arrays(gp).items()}
+            records[-1]['shape'] = {'L': gp.L, 'M': gp.M, 'N': gp.N}
+            records[-1]['results'][1]['K_inv_Y'] = records[-1]['inputs']['K_inv_Y'].numpy()
+        return by_kind, extras
+
+    run.marginalize_all_kinds = timed_marginalize
+    calibrators.ClosedSobolWithError.marginalize_intervals = timed_intervals
+    try:
+        yield records
+    finally:
+        run.marginalize_all_kinds = marginalize
+        calibrators.ClosedSobolWithError.marginalize_intervals = intervals
+
+
+def check_gsa_tree(repo):
+    """Every fold's S/V/T/W CSVs of every kind exist and are finite, with one
+    column per m (and the full slice's m=M in S, V and T); the full slice's S
+    has a unit diagonal; CLOSED S (each output's own index, the
+    diagonal) does not decrease in m; T >= 0."""
+    import numpy as np
+    import pandas as pd
+    for k in repo.folds:
+        for kind in KINDS:
+            folder = repo.fold_folder(k) / 'gpr.v.a' / 'gsa' / kind
+            frames = {csv: pd.read_csv(folder / f'{csv}.csv', index_col=[0, 1])
+                      for csv in 'SVTW'}
+            for csv, frame in frames.items():
+                columns = M if csv == 'W' else M + 1
+                require(frame.shape == (9, columns) and bool(np.isfinite(frame.to_numpy()).all()),
+                        f'{folder / csv}.csv: shape {frame.shape}, or not finite')
+            S = frames['S']
+            diagonal = [(l, l) for l in range(3)]
+            require(np.abs(S.loc[diagonal, str(M)].to_numpy() - 1).max() <= 1e-9,
+                    f'{folder}: the full slice\'s S has no unit diagonal')
+            require(bool((frames['T'].to_numpy() >= 0).all()), f'{folder}: T < 0')
+            if kind == 'closed':
+                steps = np.diff(S.loc[diagonal].to_numpy(), axis=1)
+                require(steps.min() >= -1e-6, f'{folder}: CLOSED S decreases by {steps.min()}')
+
+
+def print_gsa_records(records):
+    for r in records:
+        t = r['timings']
+        chunk = r['V0_chunk'] or 'N'
+        print(f'  N={r["N"]}: GSA {r["seconds"]:.3f} s (posterior factors, set-up with the '
+              f'full V in chunks of {chunk}, intervals); V pass {t["v_pass_s"]:.3f} s '
+              f'({t["v_chunks"]} chunks, loop {t["v_loop_s"]:.3f} s); W/T sweep '
+              f'{t["wt_sweep_s"]:.3f} s (prep {t["e_prep_s"]:.3f} s, {t["e_chunks"]} chunks, '
+              f'loop {t["e_loop_s"]:.3f} s, psi solve and determinants {t["e_solve_s"]:.3f} s)',
+              flush=True)
+
+
+def gsa_main_path(torch, user, gram_kernels, repo):
+    """Phase 6, the full-size run: run.gsa on phase 4's repository, checked,
+    timed, its peak memory read, and one N=4096 fold profiled."""
+    from torch.autograd import DeviceType
+    from romcomma_tpu_torch.data.storage import Fold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gram_kernels.LAUNCHES = 0
+    with gsa_records(torch) as records:
+        t0 = time.perf_counter()
+        names = user.run.gsa('gpr', repo, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'run.gsa: {seconds:.2f} s for folds {list(repo.folds)}, names {[str(n) for n in names]}; '
+          f'peak device memory {peak:.2f} GiB; unit-gram kernel launches {gram_kernels.LAUNCHES} '
+          f'(the GSA runs in float64 and has no kernel of its own)', flush=True)
+    print_gsa_records(records)
+    require(len(records) == len(repo.folds), records)
+    check_gsa_tree(repo)
+    fold = Fold(repo, 0)
+    t0 = time.perf_counter()
+    user.run.gsa('gpr', fold, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    # Device activity only: host events of ~50 000 launches take a minute to
+    # aggregate. The idle share is read from the profiled run alone.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        user.run.gsa('gpr', fold, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
+        torch.cuda.synchronize()
+        profiled = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f'profile of run.gsa on fold 0 (N={fold.N}): {profiled:.1f} ms wall under the '
+          f'profiler ({wall:.1f} ms in a run without it); device busy {busy:.1f} ms, idle share '
+          f'{1 - busy / profiled:.3f} of the profiled wall; {sum(e.count for e in kernels)} '
+          'kernel launches; top kernels by device time:', flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f'    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:230]}',
+              flush=True)
+
+
+#: The card's GSA is held to the CPU's within this many times the spread
+#: that a one-ulp perturbation causes on the CPU, on the same posterior. W =
+#: mu_phi_mu - mu_psi_mu is a difference of quadforms grown by cond(K), and
+#: T^2 = |Q| / V4 one more, so how far two correct float64 evaluations land
+#: apart depends on the posterior: 1e-8 to 2e-5 of W's largest entry on
+#: installation-test posteriors. This script prints, for each posterior,
+#: each table's distance in units of its spread (PERF.md records the
+#: readings); romcomma_tpu and the port on the CPU stay within 10 spreads
+#: too (tests/test_torch_gsa.py, the ill-conditioned case).
+ULP_SPREADS = 10
+#: The spread is the largest response over this many random one-ulp draws.
+ULP_DRAWS = 3
+#: The chunk size that runs every chunk loop of the GSA several times at the
+#: installation test's N = 150 and 300.
+SMALL_CHUNK = 16
+#: The GSA's slices in one pass over every kind, as run.gsa makes them.
+SLICE_KINDS = {'FIRST_ORDER': lambda m, M_: (m, m + 1), 'CLOSED': lambda m, M_: (0, m + 1),
+               'TOTAL': lambda m, M_: (m + 1, M_)}
+
+
+def _table_errors(results, reference):
+    """The worst |results - reference| of each table (one kind's S, V, W or
+    T^2, an extra, or K^-1 y where both hold it), relative to the table's
+    largest |reference| entry, by key (T is compared squared: its square
+    root amplifies entries that cancel to 0)."""
+    import numpy as np
+    (kinds, extras), (ref_kinds, ref_extras) = results, reference
+    pairs = [(key, kinds[kind][key], ref_kinds[kind][key]) for kind in kinds for key in 'SVWT']
+    pairs += [(key[0], extras[key], ref_extras[key]) for key in ('S', 'V0', 'T')]
+    if 'K_inv_Y' in extras and 'K_inv_Y' in ref_extras:
+        pairs.append(('K^-1 y', extras['K_inv_Y'], ref_extras['K_inv_Y']))
+    worst = {}
+    for key, got, want in pairs:
+        require(bool(np.isfinite(got).all()), f'{key} is not finite')
+        if key == 'T':
+            got, want = got * got, want * want
+        error = float(np.abs(got - want).max()) / (float(np.abs(want).max()) or 1.0)
+        worst[key] = max(worst.get(key, 0.0), error)
+    return worst
+
+
+def gsa_of(inputs, shape, **meta):
+    """(results, extras) of one pass over every kind's slices on the current
+    device, from float64 inputs, on the host, with K^-1 y among the extras;
+    and the interval timings."""
+    from romcomma_tpu_torch.gsa import calibrators
+    M_ = shape['M']
+    slices = tuple(slice_of(m, M_) for slice_of in SLICE_KINDS.values() for m in range(M_))
+    cal = calibrators.ClosedSobolWithError.from_arrays(**inputs, is_F_diagonal=True, **shape,
+                                                       is_T_partial=False, **meta)
+    out = cal.marginalize_intervals(slices)
+    return ({kind: {key: v[..., i * M_:(i + 1) * M_].cpu().numpy() for key, v in out.items()}
+             for i, kind in enumerate(SLICE_KINDS)},
+            {'V0': cal.V[0].cpu().numpy(), 'S': cal.S.cpu().numpy(), 'T': cal.T.cpu().numpy(),
+             'K_inv_Y': inputs['K_inv_Y'].cpu().numpy()}), dict(cal.last_interval_timings)
+
+
+def _signs(torch, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.where(torch.rand(shape, generator=g) < 0.5, -1.0, 1.0).double()
+
+
+def refactored(torch, inputs, seed=None):
+    """inputs with K rebuilt from K_cho, moved by one ulp in random symmetric
+    directions when a seed is given, and factored afresh: K_cho and K^-1 y
+    of the same y, as another float64 implementation would make them."""
+    K_cho, K_inv_Y = inputs['K_cho'], inputs['K_inv_Y']
+    K = K_cho @ K_cho.mT
+    y = K @ K_inv_Y.mT
+    if seed is not None:
+        signs = torch.triu(_signs(torch, K.shape, seed))
+        K = K * (1 + 2.0 ** -52 * (signs + torch.triu(signs, 1).mT))
+    chol = torch.linalg.cholesky(K)
+    return inputs | {'K_cho': chol, 'K_inv_Y': torch.cholesky_solve(y, chol).mT}
+
+
+def ulp_moved(torch, raw, seed):
+    """raw parameters, each moved by one ulp of its dtype in a random
+    direction."""
+    g = torch.Generator().manual_seed(seed)
+    return {name: torch.nextafter(t, torch.where(torch.rand(t.shape, generator=g) < 0.5,
+                                                 -math.inf, math.inf).to(t.dtype))
+            for name, t in raw.items()}
+
+
+def ulps_apart(torch, a, b):
+    """How many entries of two raw-parameter sets differ, and by at most how
+    many ulps."""
+    moved = [(x.view(torch.int32) - y.view(torch.int32)).abs() if x.dtype == torch.float32
+             else (x != y).int() for x, y in ((a[k], b[k]) for k in a)]
+    return sum(int((m > 0).sum()) for m in moved), max(int(m.max()) for m in moved)
+
+
+def spread(base, nudged):
+    """Each table's largest response, over ULP_DRAWS draws, to the one-ulp
+    perturbation nudged(draw), from base."""
+    worst = {}
+    for draw in range(ULP_DRAWS):
+        for key, e in _table_errors(nudged(draw), base).items():
+            worst[key] = max(worst.get(key, 0.0), e)
+    return worst
+
+
+def within_spreads(label, apart, ulps, readings):
+    """Print each table's distance against its spread; record the ratios."""
+    print(f'  {label}: worst |a - b| / max |b| (T squared) against the spread: ' + ', '.join(
+        f'{key} {apart[key]:.2e} / {ulps[key]:.2e}' for key in apart), flush=True)
+    readings.extend(apart[key] / ulps[key] if ulps[key] else (math.inf if apart[key] else 0.0)
+                    for key in apart)
+
+
+def gsa_card_against_cpu(torch, user):
+    """Phase 6, the reference checks, on the port's installation test (run
+    on the card; 3 folds, N = 150, 150, 300, M=7, L=3). Each table is held
+    within ULP_SPREADS of its spread on the CPU, from the same posterior:
+    1. the card's GSA against the CPU's from the card's own float64 inputs,
+       so that only the arithmetic differs; spread: one ulp of K^-1 y;
+    2. the card's chunk loops (n_chunk=SMALL_CHUNK, so the set-up V, the V
+       pass and the W/T sweep each run in several chunks, as at full size)
+       against its one-chunk path on the same inputs; spread as in 1;
+    3. end to end, with K^-1 y: run.gsa on a copy of the trained tree pinned
+       to the CPU. The parameters enter the float64 posterior through the
+       float32 working dtype, whose transcendentals may round differently
+       on each device; spread: one float32 ulp of every raw parameter;
+    4. the card's posterior factors and GSA against the CPU's from the
+       card's own float32 parameters, so that only the float64 gram,
+       Cholesky and GSA differ; spread: one ulp of K, factored afresh."""
+    from romcomma_tpu_torch import installation_test
+    from romcomma_tpu_torch.data.storage import Fold, Repository
+    from romcomma_tpu_torch.models import gp as gp_module
+    from romcomma_tpu_torch.models.gpr import MOGP
+    root = ROOT / 'build' / 'chip_smoke_installation'
+    shutil.rmtree(root, ignore_errors=True)
+    np_seed(SEED)
+    t0 = time.perf_counter()
+    with gsa_records(torch, keep_inputs=True) as card:
+        (folder,) = installation_test.run(root / 'card')
+    print(f'installation test on the card: {time.perf_counter() - t0:.2f} s', flush=True)
+    print_gsa_records(card)
+    shutil.copytree(folder, root / 'cpu' / folder.name)
+    repo = Repository(root / 'cpu' / folder.name)
+    with user.contexts.Environment('GSA on the CPU', device='CPU'), \
+            gsa_records(torch, keep_inputs=True) as cpu:
+        user.run.gsa('gpr', repo, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
+    require(len(card) == len(cpu) == len(repo.folds), (len(card), len(cpu)))
+
+    def model(repository, k):
+        return MOGP('gpr.v.a', Fold(repository, k), is_read=True, is_covariant=False,
+                    is_isotropic=False)
+
+    readings = {check: [] for check in ('same inputs', 'chunks', 'end to end',
+                                        'from the card\'s parameters')}
+    for k, (on_card, on_cpu) in enumerate(zip(card, cpu)):
+        shape, inputs, cpu_in = on_card['shape'], on_card['inputs'], on_cpu['inputs']
+        card_raw = {name: t.cpu() for name, t in model(Repository(folder), k)._variant_raw().items()}
+        print(f'fold {k} N={on_card["N"]}:', flush=True)
+        with user.contexts.Environment('GSA on the CPU from the card\'s inputs', device='CPU'):
+            base, _ = gsa_of(inputs, shape)
+            ulps = spread(base, lambda d: gsa_of(inputs | {'K_inv_Y': inputs['K_inv_Y'] * (
+                1 + 2.0 ** -52 * _signs(torch, inputs['K_inv_Y'].shape, 100 * k + d))}, shape)[0])
+            gp = model(repo, k)
+            raw, X, Y = gp._variant_raw(), gp._tensor(gp.X), gp._tensor(gp.Y)
+
+            def posterior(raw_):
+                K_cho, K_inv_Y = gp_module.posterior_factors_variant(raw_, X, Y)
+                return cpu_in | {'K_cho': K_cho, 'K_inv_Y': K_inv_Y}
+
+            raw_ulps = spread(gsa_of(posterior(raw), shape)[0],
+                              lambda d: gsa_of(posterior(ulp_moved(torch, raw, 100 * k + d)),
+                                               shape)[0])
+            from_card = posterior(card_raw)
+            from_card_gsa, _ = gsa_of(from_card, shape)
+            K_ulps = spread(gsa_of(refactored(torch, from_card), shape)[0],
+                            lambda d: gsa_of(refactored(torch, from_card, 100 * k + d), shape)[0])
+        within_spreads('1. card against the CPU, same inputs',
+                       _table_errors(on_card['results'], base), ulps, readings['same inputs'])
+        whole, whole_t = gsa_of(inputs, shape, n_chunk=0)
+        chunked, chunked_t = gsa_of(inputs, shape, n_chunk=SMALL_CHUNK)
+        require(whole_t['v_chunks'] == whole_t['e_chunks'] == 1
+                and min(chunked_t['v_chunks'], chunked_t['e_chunks']) > 1, (whole_t, chunked_t))
+        within_spreads(f'2. the card in chunks of {SMALL_CHUNK} ({chunked_t["v_chunks"]} V, '
+                       f'{chunked_t["e_chunks"]} W/T) against one chunk',
+                       _table_errors(chunked, whole), ulps, readings['chunks'])
+        moved, most = ulps_apart(torch, card_raw, raw)
+        within_spreads(f'3. card against the CPU end to end ({moved} raw parameters apart, by '
+                       f'at most {most} ulps), one-float32-ulp-of-the-parameters spread',
+                       _table_errors(on_card['results'], on_cpu['results']), raw_ulps,
+                       readings['end to end'])
+        within_spreads('4. card against the CPU from the card\'s parameters, one-ulp-of-K '
+                       'spread', _table_errors(on_card['results'], from_card_gsa), K_ulps,
+                       readings['from the card\'s parameters'])
+    for check, ratios in readings.items():
+        print(f'{check}: largest distance {max(ratios):.3f} spreads (limit {ULP_SPREADS})',
+              flush=True)
+    require(all(max(ratios) <= ULP_SPREADS for ratios in readings.values()),
+            'the card and the CPU, or the card\'s chunked and one-chunk paths, computed '
+            'different posterior factors or indices')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -341,13 +683,18 @@ def main() -> int:
     print(f'phase 3: {time.perf_counter() - t:.2f} s', flush=True)
 
     t = phase(f'4. main path: OAKLEY2004 N={N} M={M} K={K}, run.gpr maxiter={MAXITER}, float32')
-    launches, seconds, worst = main_path(torch, user, gram_kernels)
+    repo, launches, seconds, worst = main_path(torch, user, gram_kernels)
     print(f'phase 4: {time.perf_counter() - t:.2f} s (run.gpr {seconds:.2f} s); '
           f'worst LML error / bound {worst:.3e}', flush=True)
 
     t = phase('5. profile of one float32 LML value-and-gradient')
     profile_value_and_grad(torch)
     print(f'phase 5: {time.perf_counter() - t:.2f} s', flush=True)
+
+    t = phase(f'6. GSA on the card: run.gsa, all kinds, errors, N={N} M={M} L=3, float64')
+    gsa_main_path(torch, user, gram_kernels, repo)
+    gsa_card_against_cpu(torch, user)
+    print(f'phase 6: {time.perf_counter() - t:.2f} s', flush=True)
 
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
     print(card)

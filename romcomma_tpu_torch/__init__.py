@@ -12,12 +12,16 @@ same CSV + meta.json tree:
                  triangular solves, scipy L-BFGS-B on a torch objective.
   - ``models``   the variant multi-output GP: LML, calibration, prediction,
                  posterior factors, and the persistent GPR/MOGP wrappers.
-  - ``user``     run.gpr, sampling, test functions, results collection.
+  - ``gsa``      closed-form Sobol' indices with standard errors, in float64:
+                 the calibrators, their factorized interval and error sweeps,
+                 and the persistent Sobol models.
+  - ``user``     run.gpr, run.gsa, sampling, test functions, results
+                 collection.
 
-Not ported yet: covariant MOGP, the large-N route, GSA, ROM and the
-multi-device engines.
+Not ported yet: covariant MOGP, the large-N route, the per-slice GSA error
+path, ROM and the multi-device engines.
 """
 
-from romcomma_tpu_torch import base, data, ops, models, user  # noqa: F401
+from romcomma_tpu_torch import base, data, ops, models, gsa, user  # noqa: F401
 
 __version__ = '0.1.0'

@@ -1,0 +1,616 @@
+"""Closed-form Sobol' index calibrators.
+
+Counterpart of ``romcomma_tpu/gsa/calibrators.py`` and of the reference's
+``romcomma/gsa/calibrators.py``: the conditional-variance integrals of the GP
+posterior evaluate to products and ratios of Gaussian pdfs contracted through
+einsum chains.
+
+Math summary (diagonal signal variance F, the supported error path):
+  g0[l,n]   = F_l * prod_m (lam2_l+1)^-1/2 * exp(-x_n^2/(2(lam2_l+1))): the
+              kernel expectation E_z k_l(z, x_n) under z ~ N(0, I)
+  g0KY      = g0 * K^-1 Y, centred
+  G, Phi    = (lam2_l+1)^-1 x_n, (lam2_l+1)^-1
+  V_m       = g0KY . H_m . g0KY  with H_m a ratio of Gaussians over the
+              slice [m0:m1] of input axes              (reference _V)
+  S_m       = V_m / V_M
+with first-order/closed/total selected by the slice (gsa/models.py).
+
+Everything runs in float64 on ``definitions.device()``, whatever the training
+dtype: the quadforms cancel N^2 large alternating terms. The JAX package's
+TPU devices (emulated-float64 tiers, routing to the host CPU below an N,
+host-paced dispatch, a retry on the CPU) have no counterpart here, and the
+meta keys that selected them are refused (``TPU_ONLY_META``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from romcomma_tpu_torch.base.definitions import device
+from romcomma_tpu_torch.gsa.base import (Calibrator, Gaussian, diag_det, mean, rms, sos,
+                                         sym_check)
+
+#: meta keys of the JAX package's TPU tiers and routes; none has a meaning on
+#: the card, and each is refused by name rather than dropped.
+TPU_ONLY_META = ('intervals_mixed', 'intervals_acc_f64', 'fast_V', 'defer_V', 'host_paced',
+                 'gsa_on_cpu', 'pack_device', 'psi_solver', 'psi_solver_factory')
+
+_PER_SLICE_ERRORS_LATER = (
+    'standard errors of a general (not single, prefix, suffix or empty) slice need the '
+    'per-slice error path (ClosedSobolWithError.marginalize), which is not ported to '
+    'romcomma_tpu_torch yet: ROADMAP "Still to port", the per-slice error path')
+
+
+def _f64(a) -> torch.Tensor:
+    """a as a float64 tensor on the compute device."""
+    if torch.is_tensor(a):
+        return a.to(device=device(), dtype=torch.float64)
+    return torch.tensor(np.asarray(a), dtype=torch.float64, device=device())
+
+
+def _set_diag(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    x = x.clone()
+    torch.diagonal(x, dim1=-2, dim2=-1).copy_(d)
+    return x
+
+
+def _diag_part(x: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(x, dim1=-2, dim2=-1)
+
+
+def _synchronize(t: torch.Tensor):
+    """Wait for the card, so a host clock read next times the work."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+class ClosedSobol(Calibrator):
+    """Closed Sobol' indices from a trained GP posterior
+    (reference calibrators.py:31-143)."""
+
+    META: Dict[str, Any] = {}
+
+    def __init__(self, gp, **kwargs: Any):
+        meta = dict(self.META) | kwargs
+        is_F_diagonal = meta.pop('is_F_diagonal', None)
+        if is_F_diagonal is None:
+            is_F_diagonal = _is_F_diagonal(gp)
+        arrays = self.gather_arrays(gp)
+        self._setup(is_F_diagonal=is_F_diagonal, L=gp.L, M=gp.M, N=gp.N, meta=meta, **arrays)
+
+    @staticmethod
+    def gather_arrays(gp, need_K_cho: bool = True) -> Dict[str, torch.Tensor]:
+        """The calibrator's inputs, all float64 on the compute device, whatever
+        the training dtype (ROMCOMMA_X64=0 trains in float32; the posterior
+        factors are float64 either way).
+
+        ``need_K_cho=False`` (the plain no-error calibrator): the factor is
+        consumed only by the error path's psi solves, and its copy is the one
+        O(N^2) array of the gather. A (1,1,1) placeholder keeps the no-error
+        pass O(N M)-sized."""
+        K_cho, K_inv_Y = gp.posterior_factors
+        return {'F': _f64(gp.kernel.data.variance.np),
+                'K_cho': _f64(K_cho) if need_K_cho else torch.zeros(
+                    (1, 1, 1), dtype=torch.float64, device=device()),
+                'K_inv_Y': _f64(K_inv_Y),
+                'Lambda': _f64(gp.kernel.data.lengthscales.np),
+                'X': _f64(gp.X)}
+
+    @classmethod
+    def from_arrays(cls, F, K_cho, K_inv_Y, Lambda, X, *, is_F_diagonal: bool,
+                    L: int, M: int, N: int, **meta) -> 'ClosedSobol':
+        """Construct (and pre-calibrate) from raw arrays (numpy or torch),
+        which move to the compute device as float64."""
+        self = cls.__new__(cls)
+        meta = dict(cls.META) | meta
+        meta.pop('is_F_diagonal', None)
+        self._setup(F=F, K_cho=K_cho, K_inv_Y=K_inv_Y, Lambda=Lambda, X=X,
+                    is_F_diagonal=is_F_diagonal, L=L, M=M, N=N, meta=meta)
+        return self
+
+    def _setup(self, F, K_cho, K_inv_Y, Lambda, X, is_F_diagonal: bool,
+               L: int, M: int, N: int, meta: Dict[str, Any]):
+        refused = [key for key in TPU_ONLY_META if key in meta]
+        if refused:
+            raise ValueError(f'GSA meta {refused} select TPU tiers or routes of romcomma_tpu; '
+                             'romcomma_tpu_torch computes in float64 on its device and has none.')
+        F, K_cho, K_inv_Y, Lambda, X = (_f64(a) for a in (F, K_cho, K_inv_Y, Lambda, X))
+        self.meta = meta
+        self.L, self.M, self.N = L, M, N
+        self.Ms = (0, self.M)
+        self.F, self.K_cho, self.K_inv_Y = F, K_cho, K_inv_Y
+        self.is_F_diagonal = is_F_diagonal
+        if self.is_F_diagonal:
+            self.F = self.F if self.F.shape[0] == 1 else _diag_part(self.F)
+            self.F = self.F.reshape(self.L, 1)
+        else:
+            self.K_inv_Y = torch.permute(self.K_inv_Y, (1, 0, 2))
+        self.Lambda = torch.broadcast_to(Lambda, (self.L, self.M))
+        self.Lambda2 = self._Lambda2()
+        self.X = X
+        self._calibrate()
+
+    def _Lambda2(self) -> Dict[int, Tuple[torch.Tensor, ...]]:
+        """Powers of <Lambda^2 + J> for J in {0,1,2} (calibrators.py:99-109)."""
+        if self.is_F_diagonal:
+            result = torch.einsum('lM, lM -> lM', self.Lambda, self.Lambda)[:, None, :]
+        else:
+            result = torch.einsum('lM, LM -> lLM', self.Lambda, self.Lambda)
+        result = tuple(result + j for j in range(3))
+        return {1: result, -1: tuple(value ** (-1) for value in result)}
+
+    def _V(self, G: torch.Tensor, Phi: torch.Tensor) -> torch.Tensor:
+        """Conditional variance (L,L) for the current marginalization slice
+        (reference calibrators.py:60-80), over the jJn axis in chunks when
+        the O(L^4 N^2) H tensor would exceed the memory budget."""
+        return self._V_chunked(G, Phi, self._auto_n_chunk() or G.shape[2])
+
+    #: bytes of H-tensor buffer above which _V switches to chunked evaluation.
+    V_MEMORY_BUDGET_BYTES: int = 2 ** 30
+
+    def _auto_n_chunk(self) -> 'int | None':
+        """Chunk size for the jJn axis, or None to evaluate in one piece.
+        Settable explicitly via meta['n_chunk']; 0 forces unchunked.
+
+        The budget counts the trailing M axis: evaluated eagerly, the
+        Gaussian exponent materializes an O(L^4 N^2 M) difference tensor
+        before its M-reduction."""
+        explicit = self.meta.get('n_chunk', None)
+        if explicit is not None:
+            return int(explicit) if explicit else None
+        lb = self.g0KY.shape[0] * self.g0KY.shape[1]        # l*L bunch size
+        budget = self.V_MEMORY_BUDGET_BYTES // self.X.element_size()
+        h_elements = (lb * self.N) ** 2 * (self.M + 1)
+        if h_elements <= budget:
+            return None
+        return max(128, int(budget) // (lb * lb * self.N * (self.M + 1)))
+
+    def _V_chunked(self, G: torch.Tensor, Phi: torch.Tensor, chunk: int) -> torch.Tensor:
+        """_V over the jJn axis in chunks of ``chunk``, so peak memory is
+        O(L^4 N chunk) instead of O(L^4 N^2)."""
+        Gamma = 1 - Phi
+        Psi = Gamma[:, :, None, None, :] + Gamma[None, None, ...]
+        Psi = Psi - torch.einsum('lLM, jJM -> lLjJM', Gamma, Gamma)
+        PsiPhi = torch.einsum('lLjJM, lLM -> lLjJM', Psi, Phi)
+        phi_div = Gaussian(mean=G, variance=Phi, is_variance_diagonal=True,
+                           LBunch=2).expand_dims([-1, -2, -3])
+        ordinate = G[..., None, None, None, :]
+        V = torch.zeros((G.shape[0], G.shape[0]), dtype=G.dtype, device=G.device)
+        for start in range(0, G.shape[2], chunk):
+            G_c = G[:, :, start:start + chunk]
+            g_c = self.g0KY[:, :, start:start + chunk]
+            PhiG = torch.unsqueeze(torch.einsum('lLM, jJcM -> lLjJcM', Phi, G_c), 2)
+            H = Gaussian(mean=PhiG, variance=PsiPhi, ordinate=ordinate,
+                         is_variance_diagonal=True, LBunch=2)
+            H = H / phi_div
+            V = V + torch.einsum('lLN, lLNjJc, jJc -> lj', self.g0KY, H.pdf, g_c)
+        return V
+
+    def _calibrate(self):
+        """Pre-compute everything independent of the marginalization slice
+        (reference calibrators.py:82-97)."""
+        pre_factor = torch.sqrt(diag_det(self.Lambda2[1][0] * self.Lambda2[-1][1])) * self.F
+        self.g0 = torch.exp(Gaussian(mean=self.X[None, None, ...], variance=self.Lambda2[1][1],
+                                     is_variance_diagonal=True, LBunch=2).exponent)
+        self.g0 = self.g0 * pre_factor[..., None]
+        self.g0KY = self.g0 * self.K_inv_Y
+        self.g0KY = self.g0KY - (torch.einsum('lLN -> l', self.g0KY)[..., None, None]
+                                 / float(np.prod(self.g0KY.shape[1:])))
+        self.G = torch.einsum('lLM, NM -> lLNM', self.Lambda2[-1][1], self.X)
+        self.Phi = self.Lambda2[-1][1]
+        self.V = {0: self._V(self.G, self.Phi)}
+        self.V |= {1: _diag_part(self.V[0])}
+        V = torch.sqrt(self.V[1])
+        self.V |= {2: torch.einsum('l, i -> li', V, V)}
+        self.S = self.V[0] / self.V[2]
+        if self.meta.get('debug', False):
+            # Opt-in diagnostics (meta['debug']=True): the reference's debug
+            # reductions applied to the calibration invariants. V is an (L,L)
+            # Gram of conditional variances and must be symmetric; the
+            # residual is the asymmetry of the einsum contraction order.
+            self.debug = {
+                'V_sym': sym_check(self.V[0], (1, 0)),
+                'V_sym_relative': sym_check(self.V[0], (1, 0)) / sos(self.V[0]),
+                'S_rms': rms(self.S),
+                'g0KY_mean': mean(self.g0KY),
+                'g0KY_rms': rms(self.g0KY),
+            }
+
+    #: padding value for masked dims in width-padded slices: contributes
+    #: exponent 0 and cho_diag ratio sqrt(2g-g^2)->1 with g=1-PAD_PHI.
+    PAD_PHI: float = 1e-20
+
+    def _padded_slice(self, m: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Slice [m0:m1] of (G, Phi), zero/PAD_PHI-padded back to width M.
+        Padded dims are exactly neutral in the Gaussian-ratio algebra: G=0
+        gives zero exponent, Phi=PAD_PHI a unit determinant-ratio factor."""
+        pad = self.M - (m[1] - m[0])
+        G = torch.nn.functional.pad(self.G[..., m[0]:m[1]], (0, pad))
+        Phi = torch.nn.functional.pad(self.Phi[..., m[0]:m[1]], (0, pad), value=self.PAD_PHI)
+        return G, Phi
+
+    def marginalize(self, m: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        """Sobol' V and S of the slice [m[0]:m[1]] (calibrators.py:49-58)."""
+        G, Phi = self._padded_slice(m)
+        result = {'V': self._V(G, Phi)}
+        result['S'] = result['V'] / self.V[2]
+        return result
+
+    # -- factorized all-interval evaluation ----------------------------------- #
+    #
+    # The Gaussian-ratio pdf of an interval slice has DIAGONAL variance over
+    # input dims, so it factorizes exactly per dim m:
+    #   pdf_[a:b)(p,q) = prod_{m in [a,b)} exp(e_m(p,q)) / d_m
+    #   e_m(p,q) = -(G_pm - Phi_m G_qm)^2/(2 PsiPhi_m) + G_pm^2/(2 Phi_m)
+    #   d_m      = sqrt(PsiPhi_m / Phi_m)
+    # Exponents are additive over m, so ONE prefix/suffix pass over dims
+    # yields every canonical slice family at once: FIRST_ORDER needs e_m,
+    # CLOSED needs E_{<=m} (prefix), TOTAL needs E_{>=m} (suffix), at
+    # O(N^2 M) for ALL slices of ALL kinds instead of O(N^2 M) per slice.
+
+    @staticmethod
+    def _classify_interval(m: Tuple[int, int], M: int) -> Tuple[str, int]:
+        a, b = int(m[0]), int(m[1])
+        if a == b:
+            return ('empty', 0)
+        if b == a + 1:
+            return ('single', a)
+        if a == 0:
+            return ('prefix', b)
+        if b == M:
+            return ('suffix', a)
+        return ('general', 0)
+
+    @staticmethod
+    def _interval_specs(slices: 'Tuple[Tuple[int, int], ...]', M: int):
+        """(specs, need) of the factorized pass, with the FULL (0, M) slice
+        served by whichever cumulative sweep already runs: it is both
+        families' end state (E_{<=M} == E_{>=0}), so when no PROPER prefix
+        (0, b<M) is requested it reclassifies to ('suffix', 0) and the
+        forward sweep is skipped."""
+        specs = [ClosedSobol._classify_interval(m, M) for m in slices]
+        proper_prefix = any(k == 'prefix' and idx < M for k, idx in specs)
+        if not proper_prefix:
+            specs = [('suffix', 0) if (k == 'prefix' and idx == M) else (k, idx)
+                     for k, idx in specs]
+        need = {k: any(s[0] == k for s in specs) for k in ('single', 'prefix', 'suffix')}
+        return specs, need
+
+    def _intervals_chunk(self) -> int:
+        """Column-chunk size for the factorized pass: ~5 live
+        (l,L,N,j,J,chunk) planes per step."""
+        explicit = self.meta.get('n_chunk', None)
+        if explicit is not None:
+            # Same convention as _auto_n_chunk: 0 means the whole N as one chunk.
+            return int(explicit) if explicit else self.N
+        lb = self.g0KY.shape[0] * self.g0KY.shape[1]
+        budget = self.V_MEMORY_BUDGET_BYTES // self.X.element_size()
+        return int(min(self.N, max(128, budget // (lb * lb * self.N * 5))))
+
+    def _intervals_pack(self) -> Dict[str, torch.Tensor]:
+        """The per-dim tensors of the factorized interval pass."""
+        g = self.g0KY                                              # (l,L,N)
+        Gamma = 1 - self.Phi
+        Psi = (Gamma[:, :, None, None, :] + Gamma[None, None, :, :, :]
+               - torch.einsum('lLM, jJM -> lLjJM', Gamma, Gamma))
+        PsiPhi = torch.einsum('lLjJM, lLM -> lLjJM', Psi, self.Phi)  # (l,L,j,J,M)
+        d = torch.sqrt(PsiPhi / self.Phi[:, :, None, None, :])        # per-dim det
+        return {'g': g,
+                'Gp_m': torch.movedim(self.G, -1, 0),                # (M,l,L,N)
+                'Phi_m': torch.movedim(self.Phi, -1, 0),             # (M,l,L)
+                'PsiPhi_m': torch.movedim(PsiPhi, -1, 0),            # (M,l,L,j,J)
+                'inv_single': 1.0 / d,
+                'inv_prefix': 1.0 / torch.cumprod(d, dim=-1),        # 1/D_{<=m+1}
+                'inv_suffix': 1.0 / torch.flip(torch.cumprod(torch.flip(d, (-1,)), dim=-1),
+                                               (-1,))}
+
+    def _intervals_finalize(self, pack, acc, specs, slices) -> list:
+        """V columns (list aligned with ``slices``) from accumulated chunk
+        quadforms, with the per-slice inverse determinants applied."""
+        qf_s, qf_p, qf_f = acc
+        V_single = torch.einsum('mlLjJ, lLjJm -> mlj', qf_s, pack['inv_single'])
+        V_prefix = torch.einsum('mlLjJ, lLjJm -> mlj', qf_p, pack['inv_prefix'])
+        V_suffix = torch.einsum('mlLjJ, lLjJm -> mlj', qf_f, pack['inv_suffix'])
+        s_sum = torch.einsum('lLN -> l', pack['g'])
+        V_empty = torch.einsum('l, j -> lj', s_sum, s_sum)
+        columns = []
+        for (kindname, idx), m in zip(specs, slices):
+            if kindname == 'single':
+                columns.append(V_single[idx])
+            elif kindname == 'prefix':
+                columns.append(V_prefix[idx - 1])
+            elif kindname == 'suffix':
+                columns.append(V_suffix[idx])
+            elif kindname == 'empty':
+                columns.append(V_empty)
+            else:                                   # exotic: per-slice fallback
+                columns.append(self.marginalize(m)['V'])
+        return columns
+
+    def marginalize_intervals(self, slices: 'Tuple[Tuple[int, int], ...]'
+                              ) -> Dict[str, torch.Tensor]:
+        """V and S for MANY interval slices in one O(N^2 M) factorized pass.
+
+        Every slice any GSA kind produces (gsa/models.py) is a single dim, a
+        prefix, a suffix, or empty; exotic intervals fall back to
+        :meth:`marginalize`. Returns {'V','S'} with the slice axis LAST,
+        ordered as ``slices``. Records the chunk count and loop time in
+        ``last_v_sweep_timings``."""
+        specs, need = self._interval_specs(slices, self.M)
+        l, L, N, M = self.G.shape
+        chunk = self._intervals_chunk()
+        pack = self._intervals_pack()
+        zero = torch.zeros((M, l, L, l, L), dtype=self.G.dtype, device=self.G.device)
+        acc = (zero, zero, zero)
+        t0 = time.perf_counter()
+        for start in range(0, N, chunk):
+            acc = _intervals_step(need, pack, acc, self.G[:, :, start:start + chunk],
+                                  self.g0KY[:, :, start:start + chunk])
+        _synchronize(acc[0])
+        self.last_v_sweep_timings = {'chunks': -(-N // chunk), 'loop_s': time.perf_counter() - t0}
+        V = torch.stack(self._intervals_finalize(pack, acc, specs, slices), dim=-1)
+        return {'V': V, 'S': V / self.V[2][..., None]}
+
+
+def _intervals_step(need: Dict[str, bool], pack: Dict[str, torch.Tensor], acc, Gq_c, gq_c):
+    """One q chunk of the factorized interval pass: the per-dim exponent
+    planes, their forward (prefix) and reverse (suffix) accumulations, and
+    the g0KY-weighted quadforms of their exps, added to ``acc`` =
+    (single, prefix, suffix) quadforms (M,l,L,l,L). ``Gq_c`` (j,J,c,M) and
+    ``gq_c`` (j,J,c) are the chunk's columns of G and g0KY."""
+    g = pack['g']                                                   # (l,L,N)
+    M = pack['Gp_m'].shape[0]
+    Gq_cm = torch.movedim(Gq_c, -1, 0)                              # (M,j,J,c)
+
+    def e_step(m):
+        """Per-dim exponent plane (l,L,j,J,N,c)."""
+        Gp1, Phi1, PsiPhi1 = pack['Gp_m'][m], pack['Phi_m'][m], pack['PsiPhi_m'][m]
+        bq = Phi1[:, :, None, None, None] * Gq_cm[m][None, None]       # (l,L,j,J,c)
+        diff = Gp1[:, :, None, None, :, None] - bq[:, :, :, :, None, :]
+        e = -0.5 * diff * diff / PsiPhi1[:, :, :, :, None, None]
+        return e + 0.5 * (Gp1 * Gp1 / Phi1[..., None])[:, :, None, None, :, None]
+
+    def qf(E):
+        """Quadform of exp(E) over (N, c): a matrix-vector product on the
+        plane's trailing (N, c) axes, which torch.einsum would first copy."""
+        col = (g[:, :, None, None, None, :] @ torch.exp(E))[..., 0, :]      # (l,L,j,J,c)
+        return torch.einsum('lLjJc, jJc -> lLjJ', col, gq_c)
+
+    acc_s, acc_p, acc_f = acc
+    # The single-dim quadform rides whichever cumulative sweep already runs
+    # (its plane e_m is the same either way); only when neither family is
+    # requested does it get a pass of its own.
+    single_on_bwd = need['suffix']
+    if need['prefix'] or (need['single'] and not single_on_bwd):
+        E, ys_s, ys_p = 0.0, [], []
+        for m in range(M):
+            e = e_step(m)
+            if need['single'] and not single_on_bwd:
+                ys_s.append(qf(e))
+            if need['prefix']:
+                E = E + e
+                ys_p.append(qf(E))
+        if ys_p:
+            acc_p = acc_p + torch.stack(ys_p)
+        if ys_s:
+            acc_s = acc_s + torch.stack(ys_s)
+    if need['suffix']:
+        E, ys_s, ys_f = 0.0, [None] * M, [None] * M
+        for m in reversed(range(M)):                # emitted in dim order
+            e = e_step(m)
+            E = E + e
+            if need['single']:
+                ys_s[m] = qf(e)
+            ys_f[m] = qf(E)
+        acc_f = acc_f + torch.stack(ys_f)
+        if need['single']:
+            acc_s = acc_s + torch.stack(ys_s)
+    return acc_s, acc_p, acc_f
+
+
+class ClosedSobolWithError(ClosedSobol):
+    """Closed Sobol' indices with standard errors
+    (reference calibrators.py:146-402)."""
+
+    META: Dict[str, Any] = {'is_T_partial': True}
+
+    class RankEquation(NamedTuple):
+        l: str
+        i: str
+        j: str
+        k: str
+
+    class RankEquations(NamedTuple):
+        DIAGONAL: Any
+        MIXED: Any
+
+    RANK_EQUATIONS = RankEquations(
+        DIAGONAL=(RankEquation(l='j', i='k', j='l', k='i'),
+                  RankEquation(l='k', i='j', j='i', k='l')),
+        MIXED=(RankEquation(l='k', i='k', j='j', k='i'),))
+
+    def _equateRanks(self, liLNjkJM: torch.Tensor, rank_eq: 'RankEquation') -> torch.Tensor:
+        """Diagonalize/sum tensor ranks per rank_eq (calibrators.py:172-191).
+        The reference's reshape-merge of the last two axes (TF's rank-6 einsum
+        limit) is kept verbatim since the axis bookkeeping depends on it."""
+        shape = list(liLNjkJM.shape)
+        eqRanks_j = 'j' if shape[4] == 1 else rank_eq.j
+        eqRanks_k = 'k' if shape[5] == 1 else rank_eq.k
+        t = liLNjkJM.reshape(shape[:-2] + [-1])
+        if rank_eq in self.RANK_EQUATIONS.MIXED:
+            result = torch.einsum('iiLNjkS -> LNjiS', t)
+        else:
+            result = torch.einsum(f'liLN{eqRanks_j}{eqRanks_k}S -> LN{rank_eq.j}{rank_eq.k}S', t)
+        result = result.reshape(list(result.shape[:-1]) + shape[-2:])
+        return (torch.einsum('LNjjJM -> LNjJM', result)[..., None, :, :]
+                if rank_eq.j == 'i' else result)
+
+    def _omega_mean_variance(self, mp, G: torch.Tensor, Phi: torch.Tensor,
+                             Upsilon: torch.Tensor):
+        """Omega-family mean/variance tensors (reference calibrators.py:
+        214-242), elementwise in the trailing M axis, before rank-equating.
+        Sliced to ``mp`` when it is not the full interval."""
+        Gamma = 1 - Phi
+        Gamma_inv = 1 / Gamma
+        Pi = 1 + Phi + torch.einsum('ikM, ikM, ikM -> ikM', Phi, Gamma_inv, Phi)
+        Pi = 1 / Pi
+        B = torch.einsum('jJM, jJM -> jJM', Gamma, Phi)[None, :, None, ...]
+        B = B + torch.einsum('jJM, ikM, jJM -> ijkJM', Phi, Pi, Phi)
+        Gamma_reshape = Gamma[:, None, :, None, :]
+        C = Gamma_reshape / (1 - torch.einsum('lLM, ikM -> liLkM', Phi, Upsilon))
+        C = torch.einsum('ikM, liLkM -> liLkM', (1 - Upsilon), C)
+        Omega = torch.einsum('ikM, ikM, ikM -> ikM', Pi, Phi, Gamma_inv)
+        Omega = torch.einsum('jJM, ikM -> ijkJM', Phi, Omega)
+        mean = torch.einsum('ijkJM, liLkM, lLM, lLNM -> liLNjkJM', Omega, C, Gamma_inv, G)
+        variance = (B[None, :, None, ...]
+                    + torch.einsum('ijkJM, liLkM, ijkJM -> liLjkJM', Omega, C, Omega))
+        if mp is not self.Ms:
+            variance = variance[..., mp[0]:mp[1]]
+            mean = mean[..., mp[0]:mp[1]]
+        return mean, variance
+
+    def _upsilon_mean_variance(self, G: torch.Tensor, Phi: torch.Tensor,
+                               Upsilon: torch.Tensor):
+        """Upsilon-family mean/variance tensors (reference calibrators.py:
+        244-257), elementwise in the trailing M axis, before rank-equating."""
+        Upsilon_cho = torch.sqrt(Upsilon)
+        mean = torch.einsum('ikM, lLNM -> liLNkM', Upsilon_cho, G)[..., None, :, None, :]
+        variance = 1 - torch.einsum('ikM, lLM, ikM -> liLkM', Upsilon_cho, Phi,
+                                    Upsilon_cho)[..., None, :, None, :]
+        return mean, variance
+
+    def _W(self, mu_phi_mu: torch.Tensor, mu_psi_mu: torch.Tensor) -> torch.Tensor:
+        W = mu_phi_mu - mu_psi_mu
+        return W + W.T
+
+    def _T(self, Wmm: torch.Tensor, WMm: torch.Tensor = None, Vm: torch.Tensor = None
+           ) -> torch.Tensor:
+        if self.meta['is_T_partial']:
+            return torch.sqrt(torch.abs(Wmm) / self.V[4])
+        return self._T_from(Wmm, self.Q, WMm, Vm)
+
+    def _T_from(self, Wmm: torch.Tensor, Q: torch.Tensor, WMm: torch.Tensor,
+                Vm: torch.Tensor) -> torch.Tensor:
+        """Non-partial T with ``Q`` passed explicitly (the factorized engine
+        computes Q itself before the full-interval cache exists)."""
+        Qs = Wmm - 2 * Vm * WMm / self.V[1] + Vm * Vm * Q
+        return torch.sqrt(torch.abs(Qs) / self.V[4])
+
+    def marginalize(self, m: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError(_PER_SLICE_ERRORS_LATER)
+
+    def marginalize_intervals(self, slices: 'Tuple[Tuple[int, int], ...]'
+                              ) -> Dict[str, torch.Tensor]:
+        """Factorized all-interval pass INCLUDING standard errors.
+
+        V/S come from the parent's O(N^2 M) pass. The W/T error integrals
+        factorize the same way and are computed by the chunked sweep in
+        :mod:`romcomma_tpu_torch.gsa.factorized_errors`. Records the split of
+        its time in ``last_interval_timings``: ``v_pass_s`` and
+        ``wt_sweep_s``, then the V sweep's ``v_chunks``/``v_loop_s`` and
+        the error sweep's ``e_prep_s``/``e_chunks``/``e_loop_s``/``e_solve_s``."""
+        from romcomma_tpu_torch.gsa import factorized_errors
+        slices = tuple(slices)
+        specs = [self._classify_interval(m, self.M) for m in slices]
+        if any(k == 'general' for k, _ in specs):
+            raise NotImplementedError(_PER_SLICE_ERRORS_LATER)
+        t0 = time.perf_counter()
+        base = super().marginalize_intervals(slices)
+        _synchronize(base['V'])
+        timings = {'v_pass_s': time.perf_counter() - t0}
+        timings.update({f'v_{k}': v for k, v in self.last_v_sweep_timings.items()})
+        t0 = time.perf_counter()
+        base |= factorized_errors.intervals(self, slices, specs, base['V'])
+        _synchronize(base['V'])
+        timings['wt_sweep_s'] = time.perf_counter() - t0
+        timings.update({f'e_{k}': v for k, v in self.last_error_sweep_timings.items()})
+        self.last_interval_timings = timings
+        return base
+
+    def _calibrate(self):
+        """(calibrators.py:375-402). The full-interval error integrals
+        (psi_factor, W, Q, T) are computed lazily on first access by the
+        factorized sweep (gsa/factorized_errors.py)."""
+        super()._calibrate()
+        if not self.is_F_diagonal:
+            raise NotImplementedError('If the MOGP kernel covariance is not diagonal, '
+                                      'the Sobol error calculation is unstable.')
+        self.Upsilon = self.Lambda2[-1][2]
+        self.V |= {4: torch.einsum('li, li -> li', self.V[2], self.V[2])}
+        self.mu_phi_mu = {'pre-factor': torch.reshape(
+            torch.sqrt(torch.prod(self.Lambda2[1][0] * self.Lambda2[-1][2], dim=-1)) * self.F,
+            [-1])}
+        self._full_error_cache = None
+
+    def _full_error(self) -> Dict[str, Any]:
+        if self._full_error_cache is None:
+            from romcomma_tpu_torch.gsa import factorized_errors
+            self._full_error_cache = factorized_errors.full_interval(self)
+        return self._full_error_cache
+
+    @property
+    def psi_factor(self) -> torch.Tensor:
+        return self._full_error()['psi_factor']
+
+    @property
+    def W(self):
+        w = self._full_error()['W']
+        return (w['DIAGONAL'] if self.meta['is_T_partial']
+                else self.RankEquations(DIAGONAL=w['DIAGONAL'], MIXED=w['MIXED']))
+
+    @property
+    def Q(self) -> torch.Tensor:
+        return self._full_error()['Q']
+
+    @property
+    def T(self) -> torch.Tensor:
+        return self._full_error()['T']
+
+
+def _is_F_diagonal(gp) -> bool:
+    """F-diagonality, read from the GP's meta.json kernel options
+    (reference calibrators.py:129-132)."""
+    gp_options = gp.read_meta() if gp._meta_json.exists() else dict(gp.META)
+    return not gp_options.pop('kernel', {}).pop('covariance', False)
+
+
+def marginalize_all(gp, slices: Tuple[Tuple[int, int], ...], is_error_calculated: bool, **meta):
+    """Run a whole GSA kind: calibrator construction plus every m-slice
+    marginalization. See :func:`marginalize_all_kinds`, of which this is the
+    single-kind case. Returns (results, extras)."""
+    by_kind, extras = marginalize_all_kinds(gp, {'_only': tuple(slices)},
+                                            is_error_calculated, **meta)
+    return by_kind['_only'], extras
+
+
+def marginalize_all_kinds(gp, kind_slices: 'Dict[str, Tuple[Tuple[int, int], ...]]',
+                          is_error_calculated: bool, **meta):
+    """Run EVERY requested GSA kind of one fold's GP: one calibrator
+    precompute plus one factorized pass over all m-slices of all kinds, on
+    ``definitions.device()`` and nowhere else.
+
+    Returns ({kind: results}, extras): results[key] has the slice axis last;
+    extras = {'V0','S'[,'T']}, the quantities Sobol._post_calibrate needs.
+    """
+    cls = ClosedSobolWithError if is_error_calculated else ClosedSobol
+    meta = {k: v for k, v in meta.items() if k not in ('folder', 'm', 'M')}
+    is_F_diagonal = meta.pop('is_F_diagonal', None)
+    if is_F_diagonal is None:
+        is_F_diagonal = _is_F_diagonal(gp)
+    arrays = ClosedSobol.gather_arrays(gp, need_K_cho=is_error_calculated)
+    cal = cls.from_arrays(is_F_diagonal=is_F_diagonal, L=gp.L, M=gp.M, N=gp.N, **meta, **arrays)
+    flat = [s for slices in kind_slices.values() for s in slices]
+    out = cal.marginalize_intervals(tuple(flat))
+    by_kind, start = {}, 0
+    for kind, slices in kind_slices.items():
+        stop = start + len(slices)
+        by_kind[kind] = {k: v[..., start:stop] for k, v in out.items()}
+        start = stop
+    extras = {'V0': cal.V[0], 'S': cal.S}
+    if is_error_calculated and not cal.meta['is_T_partial']:
+        extras['T'] = cal.T
+    return by_kind, extras

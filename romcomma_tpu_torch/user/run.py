@@ -1,5 +1,5 @@
-"""Workflow orchestration: run.gpr (reference: romcomma/user/run.py).
-Counterpart of the GPR half of ``romcomma_tpu/user/run.py``.
+"""Workflow orchestration: run.gpr / run.gsa (reference: romcomma/user/run.py).
+Counterpart of ``romcomma_tpu/user/run.py``.
 
 Reproduces the reference's recursion and tri-state expansion exactly:
   - ``is_covariant=None`` runs variant then covariant; ``is_isotropic=None``
@@ -13,10 +13,14 @@ Reproduces the reference's recursion and tri-state expansion exactly:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import shutil
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
 
 from romcomma_tpu_torch.base.classes import Data
 from romcomma_tpu_torch.data.storage import Repository, Fold
+from romcomma_tpu_torch.gsa.calibrators import marginalize_all_kinds
+from romcomma_tpu_torch.gsa.models import GSA, Sobol
 from romcomma_tpu_torch.models.gpr import MOGP
 from romcomma_tpu_torch.user import contexts, results
 
@@ -109,4 +113,49 @@ def gpr(name: str, repo: Repository, is_read: Optional[bool], is_covariant: Opti
                 if not ignore_exceptions:
                     raise
         names.append(full_name)
+    return names
+
+
+def gsa(name: str, repo: Repository, is_covariant: Optional[bool], is_isotropic: Optional[bool],
+        kinds: 'GSA.Kind | Sequence[GSA.Kind]' = None, m: int = -1,
+        ignore_exceptions: bool = False, is_error_calculated: bool = False,
+        fold_parallel: Optional[bool] = None, **kwargs) -> List[Path]:
+    """Undertake GSA on a Fold, or recursively across the Folds in a Repository
+    (reference run.py:105-158). Returns the GSA folders of the last fold,
+    relative to the fold's folder.
+
+    ``fold_parallel`` is accepted for compatibility with romcomma_tpu's
+    signature. The folds always run in the sequential per-fold loop here."""
+    kinds = GSA.ALL_KINDS if kinds is None else kinds
+    kinds = (kinds,) if isinstance(kinds, GSA.Kind) else kinds
+    if not isinstance(repo, Fold):
+        names = []
+        for k in repo.folds:
+            names = gsa(name, Fold(repo, k), is_covariant, is_isotropic, kinds, m,
+                        ignore_exceptions, is_error_calculated, **kwargs)
+        results.Collect({'S': {}, 'V': {}} | ({'T': {}, 'W': {}} if is_error_calculated else {}),
+                        {str(n): {} for n in names}, ignore_exceptions).from_folds(repo, True)
+        for n in names:
+            shutil.copyfile(repo.fold_folder(repo.folds.start) / 'meta.json',
+                            repo.folder / n / 'meta.json')
+        return names
+    names = []
+    for covariant, isotropic in _model_passes(is_covariant, is_isotropic):
+        full_name = _model_name(name, covariant, isotropic)
+        with contexts.Timer(f'fold.{repo.meta["k"]} {full_name} GSA'):
+            try:
+                gp = MOGP(full_name, repo, is_read=True, is_covariant=covariant,
+                          is_isotropic=isotropic)
+                sobols = [Sobol(gp, kind, m, is_error_calculated, **kwargs) for kind in kinds]
+                # One pass covers every kind (shared calibrator precompute);
+                # each Sobol then post-processes and saves its share.
+                kind_slices = {s.kind.name: tuple(s._m_dataset) for s in sobols}
+                by_kind, extras = marginalize_all_kinds(gp, kind_slices, is_error_calculated,
+                                                        **sobols[0].meta)
+                for s in sobols:
+                    folder = s.calibrate(precomputed=(by_kind[s.kind.name], extras))['folder']
+                    names.append(Path(folder).relative_to(repo.folder))
+            except Exception:
+                if not ignore_exceptions:
+                    raise
     return names

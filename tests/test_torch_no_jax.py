@@ -1,6 +1,6 @@
-"""The port stands alone: a fresh process imports romcomma_tpu_torch and
-trains a small model through run.gpr on the CPU without importing jax or
-romcomma_tpu."""
+"""The port stands alone: a fresh process imports romcomma_tpu_torch, trains
+a small model through run.gpr and runs its GSA with standard errors through
+run.gsa on the CPU, without importing jax or romcomma_tpu."""
 
 import subprocess
 import sys
@@ -23,6 +23,8 @@ df = pd.DataFrame(np.concatenate((X, user.functions.ISHIGAMI(X)), axis=1),
 repo = Repository.from_df({str(tmp_path / 'repo')!r}, df).into_K_folds(1)
 with user.contexts.Environment('port'):
     user.run.gpr('gpr', repo, is_read=False, is_covariant=False, is_isotropic=True, maxiter=20)
+    user.run.gsa('gpr', repo, is_covariant=False, is_isotropic=True, is_error_calculated=True,
+                 is_T_partial=False)
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
 """
     done = subprocess.run([sys.executable, '-c', script], capture_output=True, text=True,
@@ -30,3 +32,6 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
     assert done.returncode == 0, done.stderr
     assert done.stdout.strip().splitlines()[-1] == '[]'
     assert (tmp_path / 'repo' / 'fold.0' / 'gpr.v.i' / 'test.csv').exists()
+    for kind in ('first_order', 'closed', 'total'):
+        assert (tmp_path / 'repo' / 'fold.0' / 'gpr.v.i' / 'gsa' / kind / 'T.csv').exists()
+        assert (tmp_path / 'repo' / 'gpr.v.i' / 'gsa' / kind / 'W.csv').exists()

@@ -1,6 +1,7 @@
 """The port's slice as a whole, at float64 on the CPU: sample -> k-fold ->
 variant MOGP training (isotropic then anisotropic) -> test, through
-``user.run.gpr`` in both packages on one repository."""
+``user.run.gpr`` in both packages on one repository; then ``user.run.gsa``
+(all kinds, with standard errors) of both packages on one trained tree."""
 
 import random
 import shutil
@@ -35,6 +36,22 @@ def _files(root: Path):
 
 def _frame(path: Path, **read_options) -> np.ndarray:
     return pd.read_csv(path, **read_options).to_numpy(dtype=float)
+
+
+@pytest.fixture(scope='module')
+def gsa_trees(trained, tmp_path_factory):
+    """The port-trained tree, copied twice; romcomma_tpu's run.gsa on one copy
+    and the port's on the other (anisotropic variant GP, all kinds, errors,
+    non-partial T)."""
+    root, _, _ = trained
+    gsa_root = tmp_path_factory.mktemp('gsa')
+    options = dict(is_covariant=False, is_isotropic=False, kinds=user.run.GSA.ALL_KINDS,
+                   is_error_calculated=True, is_T_partial=False)
+    for package, run in (('jax', jax_user.run), ('port', user.run)):
+        shutil.copytree(root / 'port', gsa_root / package)
+        repository = (JaxRepository if package == 'jax' else Repository)(gsa_root / package)
+        run.gsa('gpr', repository, **options)
+    return gsa_root
 
 
 @pytest.fixture(scope='module')
@@ -156,3 +173,72 @@ def test_environment_refuses_a_device_it_cannot_give(monkeypatch, wanted, has_ca
         with user.contexts.Environment('port', device=wanted):
             assert device() == torch.device('cpu')
     assert device() == before
+
+
+def test_gsa_same_file_set(gsa_trees):
+    """Both packages' run.gsa write the same files under each fold's gsa/
+    and at the repository level."""
+    assert _files(gsa_trees / 'jax') == _files(gsa_trees / 'port')
+    for k in range(K + 1):
+        gsa = Path(f'fold.{k}') / 'gpr.v.a' / 'gsa'
+        assert {p.name for p in (gsa_trees / 'port' / gsa).iterdir()} == {
+            'first_order', 'closed', 'total'}
+        assert _files(gsa_trees / 'port' / gsa) == _files(gsa_trees / 'jax' / gsa)
+
+
+#: T^2 against romcomma_tpu's: its relative tolerance, and the floor, relative
+#: to the largest T^2 of its (l, i) row, that holds where Q cancels.
+T2_RTOL, T2_ROW_FLOOR = 2e-8, 1e-9
+
+
+def _indices_close(got: np.ndarray, want: np.ndarray, csv: str, kind: str, message: str):
+    """S, V and W agree at 2e-6: the CSVs hold 6 decimals. T = sqrt(|Q| / V4)
+    is compared squared, row by row (rows are (l, i), columns m), after a
+    TOTAL table's full-slice column is taken back out of its other columns
+    (Sobol adds it in; the column itself stays). Q is linear in each package's rounding: where it
+    cancels to 0 in exact arithmetic (the full slice's diagonal, outputs
+    without sensitivity) it reads a few ulps of its row's scale, and T the
+    square root of that (5e-3 at T up to 3.2e4 on this tree). The largest
+    readings on this tree, fold 0 (T up to 3.2e4): |dT^2| / T^2 5.6e-9 at
+    entries that do not cancel, |dT^2| 7.0e-11 of the row's largest T^2 at
+    those that do. So T^2 is held at T2_RTOL plus T2_ROW_FLOOR of its row's
+    largest entry, beside the CSV's rounding."""
+    if csv != 'T':
+        np.testing.assert_allclose(got, want, rtol=0.0, atol=2e-6, err_msg=message)
+        return
+    if kind == 'total':
+        got, want = (np.concatenate([t[:, :-1] - t[:, -1:], t[:, -1:]], axis=1)
+                     for t in (got, want))
+    rounding = 2e-6 * (np.abs(got) + np.abs(want))
+    square = want * want
+    bound = rounding + T2_RTOL * square + T2_ROW_FLOOR * square.max(axis=1, keepdims=True)
+    excess = np.abs(got * got - square) - bound
+    assert (excess <= 0).all(), (message, got, want, excess.max())
+
+
+@pytest.mark.parametrize('kind', ['first_order', 'closed', 'total'])
+def test_gsa_indices_agree(gsa_trees, kind):
+    """S, V, T and W of every fold agree, with the same rows and m columns."""
+    for k in range(K + 1):
+        for csv in ('S', 'V', 'T', 'W'):
+            path = Path(f'fold.{k}') / 'gpr.v.a' / 'gsa' / kind / f'{csv}.csv'
+            got = pd.read_csv(gsa_trees / 'port' / path, index_col=[0, 1])
+            want = pd.read_csv(gsa_trees / 'jax' / path, index_col=[0, 1])
+            assert list(got.columns) == list(want.columns) and got.index.equals(want.index)
+            _indices_close(got.to_numpy(), want.to_numpy(), csv, kind, str(path))
+
+
+def test_gsa_collected_outputs_agree(gsa_trees):
+    """The repository-level Collect of S, V, T and W, and the meta.json copied
+    beside them, match romcomma_tpu's."""
+    for kind in ('first_order', 'closed', 'total'):
+        folder = Path('gpr.v.a') / 'gsa' / kind
+        for csv in ('S', 'V', 'T', 'W'):
+            # Rows (N, fold, l, i), one column per m.
+            got = pd.read_csv(gsa_trees / 'port' / folder / f'{csv}.csv', index_col=[0, 1, 2, 3])
+            want = pd.read_csv(gsa_trees / 'jax' / folder / f'{csv}.csv', index_col=[0, 1, 2, 3])
+            assert list(got.columns) == list(want.columns) and got.index.equals(want.index)
+            _indices_close(got.to_numpy(dtype=float), want.to_numpy(dtype=float), csv, kind,
+                           str(folder / csv))
+        assert ((gsa_trees / 'port' / folder / 'meta.json').read_text()
+                == (gsa_trees / 'port' / 'fold.0' / 'meta.json').read_text())
