@@ -9,10 +9,12 @@ Phases (each prints its result and its time; none catches its own failure):
   1. the card, torch and CUDA;
   2. the unit-gram kernel's build from csrc/unit_gram.cu (nvcc, sm_90a);
   3. the kernel against its plain version, forward and backward, at the main
-     path's shapes (u is v) and at ragged and two-operand ones; then both
-     versions' times at the main path's shapes (CUDA events, 50 samples of
-     10 back-to-back calls each after warm-up), the kernels' device time
-     (torch.profiler), the bound, and the wrapper's host time per call;
+     path's shapes (u is v; the covariant path's stacked (L*N)^2 ones too) and
+     at ragged and two-operand ones, and the covariant gram's one launch over
+     stacked operands; then both versions' times at the main path's shapes
+     (CUDA events, 50 samples of 10 back-to-back calls each after warm-up),
+     the kernels' device time (torch.profiler), the bound, and the wrapper's
+     host time per call; and the forward's times at the covariant shapes;
   4. the main path at full size through the user entry points:
      sample OAKLEY2004 at N=8192, M=30 -> into_K_folds(2) -> run.gpr (variant
      MOGP, isotropic then anisotropic, maxiter=50, tested), in float32, so the
@@ -30,10 +32,24 @@ Phases (each prints its result and its time; none catches its own failure):
      spread to its GSA on the CPU from the card's float64 inputs, to its
      own chunk loops against one chunk, to run.gsa on a copy of the trained
      tree on the CPU, and to the CPU's posterior and GSA from the card's
-     float32 parameters.
+     float32 parameters;
+  7. the covariant MOGP on phase 4's trained repository: run.gpr
+     (is_covariant=True, warm-started from gpr.v.a, float32, L*N = 12288,
+     12288, 24576, lengthscales frozen, so every descent runs
+     CovariantUpperLML), with per-fold times, launches, scipy's stop reason
+     and the float32 LML against the float64 plain LML; one value+grad
+     profiled at L*N = 12288 and 24576, lengthscales frozen, and one at 12288
+     with them trainable; at L*N = 12288, CovariantUpperLML's value and
+     F/noise gradients in float32 and float64 held to float64 autograd within
+     first-order limits from the measured cond(K);
+     run.gsa(is_covariant=True) without errors, checked; then the
+     installation test's size with the kernel covariance trained (F
+     non-diagonal), its LML, gradient, predictions and GSA on the card held
+     to the CPU's from the same float64 inputs.
 
 The last two lines of standard output are the kernels' JSON record and the
-device's. Exits non-zero, printing no result, where there is no CUDA device
+device's; the record counts the unit-gram launches of both main paths, run.gpr
+of phase 4 and of phase 7, each counted from 0 just before it runs. Exits non-zero, printing no result, where there is no CUDA device
 or no checkout around the script.
 """
 
@@ -56,8 +72,14 @@ SEED = 20241016
 N, M, K, MAXITER = 8192, 30, 2, 50
 #: (A, B, M, u is v). The training grams of the main path have u is v.
 KERNEL_SHAPES = [(37, 61, 5, False), (4097, 4095, 30, False), (4096, 4096, 30, False),
-                 (4096, 4096, 30, True), (8192, 8192, 30, True)]
+                 (4096, 4096, 30, True), (8192, 8192, 30, True), (12288, 12288, 30, True),
+                 (24576, 24576, 30, True)]
 TIMED_SHAPES = [(4096, 4096, 30), (8192, 8192, 30)]
+#: The covariant path's unit grams, (L*N)^2 over one stacked operand (u is v),
+#: timed forward only, with fewer samples: a plain call at 24576^2 takes ~10 ms.
+COVARIANT_TIMED_SHAPES = [(12288, 12288, 30), (24576, 24576, 30)]
+#: (L, A, B, M) of the covariant gram checked through its kernel wrapper.
+COVARIANT_GRAM_CASE = (3, 2048, 1536, 30)
 TIMING_SAMPLES, CALLS_PER_SAMPLE = 50, 10
 
 #: The H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
@@ -218,10 +240,57 @@ def check_kernel(torch, gram_kernels):
               f'torch.profiler) {device:.4f} ms, at {bound / device:.3f}. Backward bound '
               f'{backward_bound_ms(A, B):.4f} ms (bytes); backward alone ~'
               f'{kernel_fb[1] - kernel[1]:.4f} ms', flush=True)
+    check_covariant_gram(torch, gram_kernels)
+    for A, B, M_ in COVARIANT_TIMED_SHAPES:
+        u, _ = unit_inputs(torch, A, B, M_, seed=7, shared=True)
+        (kernel,), (plain,) = (spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(u, u)],
+                                         samples=20, calls=5),
+                               spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(u, u)],
+                                         samples=5, calls=2))
+        device = kernel_device_ms(torch, lambda: gram_kernels.unit_gram_cuda(u, u), calls=10)
+        bound, bound_by = forward_bound_ms(A, B, M_, shared=True)
+        times[(A, B, M_)] = (kernel[1], plain[1], bound, bound_by)
+        print(f'({A}, {B}, {M_}, u is v) forward ms per call: kernel min / median / max '
+              f'{kernel[0]:.4f} / {kernel[1]:.4f} / {kernel[2]:.4f} (20 samples of 5 calls), plain '
+              f'{plain[0]:.4f} / {plain[1]:.4f} / {plain[2]:.4f} (5 samples of 2); bound '
+              f'{bound:.4f} ms ({bound_by}), kernel median at {bound / kernel[1]:.3f} of it; '
+              f'device time per call {device:.4f} ms, at {bound / device:.3f}', flush=True)
+        del u
     u, _ = unit_inputs(torch, 128, 128, 30, seed=7, shared=True)
     print(f'wrapper host time per call at (128, 128, 30, u is v): '
           f'{host_us_per_call(torch, lambda: gram_kernels.unit_gram_cuda(u, u)):.2f} us', flush=True)
     return max_err, times
+
+
+def check_covariant_gram(torch, gram_kernels):
+    """The covariant gram's one launch over the stacked, differently scaled
+    operands (L*A, M) and (L*B, M), F applied outside, against its plain
+    version: forward, and backward in x1, x2, the lengthscales and F. F has a
+    unit diagonal and entries <= 1, so VALUE_TOL holds as for E."""
+    L, A, B, M_ = COVARIANT_GRAM_CASE
+    g = torch.Generator().manual_seed(L * A)
+    x1, x2 = ((torch.randn(n, M_, generator=g) / math.sqrt(M_)).cuda() for n in (A, B))
+    ls = (0.7 + 0.6 * torch.rand(L, M_, generator=g)).cuda()
+    F = (torch.full((L, L), 0.3) + 0.7 * torch.eye(L)).cuda()
+
+    def plain(x1, x2, ls, F):
+        unit = gram_kernels.unit_gram_plain(gram_kernels.stack_scaled(x1, ls),
+                                            gram_kernels.stack_scaled(x2, ls))
+        return F[:, None, :, None] * unit.reshape(L, A, L, B)
+
+    gbar = torch.randn((L, A, L, B), generator=g).cuda()
+    values, grads = [], []
+    for fn in (gram_kernels.rbf_gram_covariant_kernel, plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x1, x2, ls, F)]
+        value = fn(*leaves)
+        values.append(value.detach())
+        grads.append(torch.autograd.grad(torch.sum(value * gbar), leaves))
+    err = (values[0] - values[1]).abs().max().item()
+    grad_err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*grads))
+    print(f'covariant gram (L={L}, A={A}, B={B}, M={M_}; one ({L * A}, {L * B}) launch): forward '
+          f'max |kernel - plain| = {err:.3e} (tol {VALUE_TOL}); backward in x1, x2, ls, F max '
+          f'error / max |grad| = {grad_err:.3e} (tol {GRAD_RTOL})', flush=True)
+    require(err <= VALUE_TOL and grad_err <= GRAD_RTOL, ('covariant gram', err, grad_err))
 
 
 def main_path(torch, user, gram_kernels):
@@ -376,18 +445,17 @@ def gsa_records(torch, keep_inputs=False):
         calibrators.ClosedSobolWithError.marginalize_intervals = intervals
 
 
-def check_gsa_tree(repo):
-    """Every fold's S/V/T/W CSVs of every kind exist and are finite, with one
+def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW'):
+    """Every fold's `csvs` of every kind exist and are finite, with one
     column per m (and the full slice's m=M in S, V and T); the full slice's S
-    has a unit diagonal; CLOSED S (each output's own index, the
-    diagonal) does not decrease in m; T >= 0."""
+    has a unit diagonal; CLOSED S (each output's own index, the diagonal)
+    does not decrease in m; T >= 0."""
     import numpy as np
     import pandas as pd
     for k in repo.folds:
         for kind in KINDS:
-            folder = repo.fold_folder(k) / 'gpr.v.a' / 'gsa' / kind
-            frames = {csv: pd.read_csv(folder / f'{csv}.csv', index_col=[0, 1])
-                      for csv in 'SVTW'}
+            folder = repo.fold_folder(k) / model / 'gsa' / kind
+            frames = {csv: pd.read_csv(folder / f'{csv}.csv', index_col=[0, 1]) for csv in csvs}
             for csv, frame in frames.items():
                 columns = M if csv == 'W' else M + 1
                 require(frame.shape == (9, columns) and bool(np.isfinite(frame.to_numpy()).all()),
@@ -396,7 +464,8 @@ def check_gsa_tree(repo):
             diagonal = [(l, l) for l in range(3)]
             require(np.abs(S.loc[diagonal, str(M)].to_numpy() - 1).max() <= 1e-9,
                     f'{folder}: the full slice\'s S has no unit diagonal')
-            require(bool((frames['T'].to_numpy() >= 0).all()), f'{folder}: T < 0')
+            require('T' not in frames or bool((frames['T'].to_numpy() >= 0).all()),
+                    f'{folder}: T < 0')
             if kind == 'closed':
                 steps = np.diff(S.loc[diagonal].to_numpy(), axis=1)
                 require(steps.min() >= -1e-6, f'{folder}: CLOSED S decreases by {steps.min()}')
@@ -656,6 +725,343 @@ def gsa_card_against_cpu(torch, user):
             'different posterior factors or indices')
 
 
+#: The device that phase 7 measures and checks against the CPU.
+CARD = 'cuda'
+#: The covariant pass of run.gpr, as a user runs it after the variant passes.
+COVARIANT_OPTIONS = dict(is_covariant=True, is_isotropic=False)
+#: The card's float64 LML, gradient, predictions and GSA against the CPU's,
+#: from the same float64 inputs, relative to each table's largest entry: two
+#: float64 Choleskys of one matrix of cond(K) ~ 1e4 differ by ~cond(K) eps64
+#: ~ 1e-12, and phase 6's card-against-CPU S and V agree to ~2e-10 (PERF.md).
+CARD_CPU_TOL = 1e-8
+#: The installation test's size (romcomma_tpu_torch/installation_test.py).
+INSTALLATION_N, INSTALLATION_M = 300, 7
+
+
+@contextmanager
+def calibration_records(torch, gram_kernels):
+    """Record every MOGP.calibrate and MOGP.test that run.gpr makes: its
+    fold, model, seconds (the card synchronised at both ends) and unit-gram
+    launches. run.gpr is left as it is; the methods are restored on exit."""
+    from romcomma_tpu_torch.models.gpr import MOGP
+    records = []
+    originals = {'calibrate': MOGP.calibrate, 'test': MOGP.test}
+
+    def recorded(step, method):
+        def wrapper(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            launches, t0 = gram_kernels.LAUNCHES, time.perf_counter()
+            out = method(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            records.append({'k': self.fold.meta['k'], 'name': self.folder.name, 'step': step,
+                            'seconds': time.perf_counter() - t0,
+                            'launches': gram_kernels.LAUNCHES - launches})
+            return out
+        return wrapper
+
+    for step, method in originals.items():
+        setattr(MOGP, step, recorded(step, method))
+    try:
+        yield records
+    finally:
+        for step, method in originals.items():
+            setattr(MOGP, step, method)
+
+
+def trained_covariant(torch, folder, on, dtype):
+    """The raw covariant parameters stored under a trained model's folder,
+    read from its CSVs (no reload, which would diagonalize the noise
+    covariance), made at FLOAT() on `on` and cast to `dtype`; and the
+    constrained F and noise covariance."""
+    from romcomma_tpu_torch.base.classes import Frame
+    from romcomma_tpu_torch.models import params
+    F, ls, noise = (Frame(folder / csv).np for csv in ('kernel/variance', 'kernel/lengthscales',
+                                                        'likelihood/variance'))
+    raw = {n: t.to(dtype) for n, t in params.covariant_init(F, ls, noise, on=on).items()}
+    return raw, F, ls, noise
+
+
+def fold_tensors(torch, fold, dtype, on=None):
+    return tuple(torch.tensor(frame.to_numpy(dtype=float), dtype=dtype, device=on or CARD)
+                 for frame in (fold.X, fold.Y))
+
+
+def covariant_main_path(torch, user, gram_kernels, repo):
+    """Phase 7, the full-size run: run.gpr's covariant pass on phase 4's
+    repository, lengthscales frozen (CovariantUpperLML), checked fold by
+    fold."""
+    import numpy as np
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.models import gp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gram_kernels.LAUNCHES = 0
+    with calibration_records(torch, gram_kernels) as records:
+        t0 = time.perf_counter()
+        names = user.run.gpr('gpr', repo, is_read=None, maxiter=MAXITER, **COVARIANT_OPTIONS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = gram_kernels.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'run.gpr covariant: {seconds:.2f} s, models {names}, folds {list(repo.folds)}, '
+          f'unit-gram kernel launches {launches}, peak device memory {peak:.2f} GiB', flush=True)
+    require(names == ['gpr.c.a'], names)
+    worst = 0.0
+    for k in repo.folds:
+        fold = Fold(repo, k)
+        folder = fold.folder / 'gpr.c.a'
+        mine = {r['step']: r for r in records if r['k'] == k}
+        require(set(mine) == {'calibrate', 'test'} and mine['calibrate']['launches'] > 0,
+                f'fold {k}: no covariant calibration through the unit-gram kernel: {mine}')
+        require((folder / 'test.csv').is_file() and (folder / 'test_summary.csv').is_file(),
+                f'{folder} has no test.csv or test_summary.csv')
+        result = json.loads((folder / 'meta.json').read_text())['result']
+        raw, F, _, noise = trained_covariant(torch, folder, CARD, torch.float32)
+        X, Y = fold_tensors(torch, fold, torch.float32)
+        with torch.no_grad():
+            lml32 = gp.lml_covariant(raw, X, Y).item()
+            lml64 = gp.lml_covariant({n: t.double() for n, t in raw.items()}, X.double(),
+                                     Y.double()).item()
+        # The first-order bound of phase 4 with L*N rows: the float32 gram and
+        # Cholesky perturb K by ~eps32 * s2 per entry, which moves log|K| and
+        # y'K^-1 y by up to ~LN eps32 s2 / noise; 10x that is the bound.
+        LN = X.shape[0] * Y.shape[1]
+        bound = 10 * LN * 1.1920929e-07 * (np.diag(F).max() / np.diag(noise).min() + 1.0)
+        worst = max(worst, abs(lml32 - lml64) / bound)
+        print(f'fold.{k} gpr.c.a L*N={LN}: calibrate {mine["calibrate"]["seconds"]:.2f} s '
+              f'({mine["calibrate"]["launches"]} launches), test {mine["test"]["seconds"]:.2f} s; '
+              f'{result}; LML f32 kernel {lml32:.6f} vs f64 plain {lml64:.6f}, |diff| '
+              f'{abs(lml32 - lml64):.3e} bound {bound:.3e}; F diagonal {np.diag(F).tolist()}, '
+              f'noise diagonal {np.diag(noise).tolist()}', flush=True)
+        require(math.isfinite(lml32) and math.isfinite(lml64) and abs(lml32 - lml64) <= bound,
+                (k, lml32, lml64, bound))
+    return launches, seconds, worst
+
+
+def profile_covariant(torch, gram_kernels, repo):
+    """Phase 7: one lengthscale-frozen value+grad (CovariantUpperLML) at L*N = 12288
+    and 24576, and one lengthscale-trainable value+grad (the autograd
+    objective, which runs the unit gram's forward and backward every
+    evaluation) at 12288, at the trained parameters, in float32."""
+    from torch.autograd import DeviceType
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.models import gp, params
+    for k, route in ((0, 'lengthscales frozen'), (2, 'lengthscales frozen'),
+                     (0, 'lengthscales trainable')):
+        fold = Fold(repo, k)
+        raw, _, _, _ = trained_covariant(torch, fold.folder / 'gpr.c.a', CARD, torch.float32)
+        X, Y = fold_tensors(torch, fold, torch.float32)
+        mask = params.covariant_mask(lengthscales=route == 'lengthscales trainable')
+        objective, _ = gp._covariant_objective(raw, mask, X, Y)
+
+        def step():
+            p = {name: t.clone().requires_grad_(True) for name, t in raw.items()}
+            torch.autograd.grad(objective(p), list(p.values()), allow_unused=True)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches, t0 = gram_kernels.LAUNCHES, time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        per_step = (gram_kernels.LAUNCHES - launches) / 3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            profiled = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        gram_ms = sum(e.self_device_time_total for e in kernels
+                      if any(n in e.key for n in KERNEL_NAMES)) / 1e3
+        print(f'{route}, L*N={X.shape[0] * Y.shape[1]}: one value+grad {wall:.2f} ms wall (mean of '
+              f'3); profiled {profiled:.2f} ms wall, device busy {busy:.2f} ms, idle share '
+              f'{1 - busy / profiled:.3f}; unit-gram launches per value+grad {per_step:.0f}, their '
+              f'kernels {gram_ms:.3f} ms; peak device memory {peak:.2f} GiB; top kernels:',
+              flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f'    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}',
+                  flush=True)
+        require(per_step == (1 if route == 'lengthscales trainable' else 0), (route, per_step))
+
+
+#: The margin over each first-order estimate of a float32 or float64 rounding
+#: error in check_covariant_gradients.
+FIRST_ORDER_MARGIN = 10
+EPS = {'float32': 2.0 ** -23, 'float64': 2.0 ** -52}
+
+
+def check_covariant_gradients(torch, gram_kernels, repo):
+    """Phase 7, at L*N = 12288 (folds 0 and 1), on the trained parameters:
+    lml(F, noise_cov) and its gradients in F and noise_cov through
+    CovariantUpperLML, in float32 (unit gram from the kernel) and in float64
+    (plain unit gram), each against autograd through the float64 Cholesky of
+    the plainly built K, on the same F, noise_cov, lengthscales and inputs.
+
+    The limits come from the measured spectrum of the float64 K: a
+    perturbation dK of norm eps lam_max moves the LML by at most
+    1/2 ||dK|| (tr K^-1 + ||alpha||^2), and each entry of dLML/dF and
+    dLML/dnoise_cov, 1/2 tr(W dK/dF_ij) with W = alpha alpha^T - K^-1 and
+    ||dK/dF_ij||_* <= N, by at most 1/2 N ||dW||, with ||dW|| <= eps cond(K)
+    (1/lam_min + 2 ||alpha||^2); FIRST_ORDER_MARGIN times each is the limit.
+    The float64 limits hold the analytic backward at these shapes; the
+    float32 gradient limit is loose wherever cond(K) is large."""
+    import numpy as np
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.models import gp, params
+    from romcomma_tpu_torch.ops.gram import rbf_gram_covariant
+    from romcomma_tpu_torch.ops.linalg import cholesky, mvn_logpdf
+    worst, failures = 0.0, []
+    for k in (0, 1):
+        fold = Fold(repo, k)
+        raw, _, _, _ = trained_covariant(torch, fold.folder / 'gpr.c.a', CARD, torch.float32)
+        with torch.no_grad():
+            c32 = params.covariant_constrain(raw)
+        X, Y = fold_tensors(torch, fold, torch.float32)
+        LN, N = X.shape[0] * Y.shape[1], X.shape[0]
+        ls64, X64, Y64 = c32['lengthscales'].double(), X.double(), Y.double()
+        yy64 = Y64.T.reshape(-1, 1)
+
+        def value_and_grads(lml, F, noise_cov):
+            F, noise_cov = (t.detach().clone().requires_grad_(True) for t in (F, noise_cov))
+            value = lml(F, noise_cov)
+            return [value.detach().double()] + [g.double() for g in
+                                                torch.autograd.grad(value, [F, noise_cov])]
+
+        def autograd_lml(F, noise_cov):
+            K = gp._add_noise(rbf_gram_covariant(X64, X64, ls64, F), noise_cov)
+            return torch.sum(mvn_logpdf(yy64, torch.zeros_like(yy64), cholesky(K)))
+
+        launches = gram_kernels.LAUNCHES
+        readings = {'float32': value_and_grads(gp.covariant_upper_lml(X, c32['lengthscales'], Y),
+                                               c32['F'], c32['noise_cov'])}
+        require(gram_kernels.LAUNCHES == launches + 1, 'the float32 unit gram missed the kernel')
+        F64, noise64 = c32['F'].double(), c32['noise_cov'].double()
+        readings['float64'] = value_and_grads(gp.covariant_upper_lml(X64, ls64, Y64), F64, noise64)
+        want = value_and_grads(autograd_lml, F64, noise64)
+        with torch.no_grad():
+            K = gp._add_noise(rbf_gram_covariant(X64, X64, ls64, F64), noise64)
+            alpha2 = float(torch.sum(yy64 * torch.cholesky_solve(yy64, torch.linalg.cholesky(K))))
+            lam = torch.linalg.eigvalsh(K)
+            del K
+        lam_min, lam_max = float(lam[0]), float(lam[-1])
+        tr_inv = float(torch.sum(1.0 / lam))
+        cond = lam_max / lam_min if lam_min > 0 else math.inf
+        print(f'fold {k} L*N={LN}: float64 K has lam_min {lam_min:.4e}, lam_max {lam_max:.4e}, '
+              f'cond {cond:.4e}, tr K^-1 {tr_inv:.4e}, ||alpha||^2 {alpha2:.4e}', flush=True)
+        for label, got in readings.items():
+            eps = EPS[label]
+            limits = [FIRST_ORDER_MARGIN * 0.5 * eps * lam_max * (tr_inv + alpha2)]
+            limits += 2 * [FIRST_ORDER_MARGIN * 0.5 * N * eps * cond * (1 / lam_min + 2 * alpha2)]
+            errors = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            ratios = [e / limit for e, limit in zip(errors, limits)]
+            worst = max(worst, *ratios)
+            print(f'  CovariantUpperLML {label} against float64 autograd: LML '
+                  f'{got[0].item():.6f} vs {want[0].item():.6f}, |diff| {errors[0]:.3e} '
+                  f'(limit {limits[0]:.3e}); dF max |diff| {errors[1]:.3e} of max |dF| '
+                  f'{float(want[1].abs().max()):.3e}, dnoise max |diff| {errors[2]:.3e} of max '
+                  f'|dnoise| {float(want[2].abs().max()):.3e} (limit {limits[1]:.3e})', flush=True)
+            if not all(math.isfinite(e) and e <= limit for e, limit in zip(errors, limits)):
+                failures.append((k, label, errors, limits))
+    require(not failures, failures)
+    return worst
+
+
+def covariant_gsa(torch, user, gram_kernels, repo):
+    """Phase 7: run.gsa on the trained covariant models, all kinds, without
+    errors (romcomma_tpu cannot compute them for a covariant model)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, t0 = gram_kernels.LAUNCHES, time.perf_counter()
+    names = user.run.gsa('gpr', repo, kinds=user.run.GSA.ALL_KINDS, is_error_calculated=False,
+                         **COVARIANT_OPTIONS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f'run.gsa covariant: {seconds:.2f} s for folds {list(repo.folds)}, names '
+          f'{[str(n) for n in names]}; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; unit-gram kernel launches '
+          f'{gram_kernels.LAUNCHES - launches}', flush=True)
+    check_gsa_tree(repo, 'gpr.c.a', 'SV')
+    return seconds
+
+
+def covariant_tables(torch, raw, X, Y, xs, F, lengthscales, on):
+    """From float64 inputs, on `on`: the covariant LML, its gradient in every
+    raw leaf, predict_covariant's mean and variance at xs, and the GSA's S
+    and V of every kind (F non-diagonal) and of the full slice. On the host."""
+    from romcomma_tpu_torch.gsa.calibrators import ClosedSobol
+    from romcomma_tpu_torch.models import gp, params
+    p = {n: t.to(on).requires_grad_(True) for n, t in raw.items()}
+    x, y, xt = (torch.tensor(a, dtype=torch.float64, device=on) for a in (X, Y, xs))
+    lml = gp.lml_covariant(p, x, y)
+    grads = torch.autograd.grad(lml, [p[n] for n in params.COVARIANT_FIELDS])
+    tables = {'lml': lml} | {f'd lml / d {n}': g for n, g in zip(params.COVARIANT_FIELDS, grads)}
+    with torch.no_grad():
+        fixed = {n: t.detach() for n, t in p.items()}
+        tables['mean'], tables['var'] = gp.predict_covariant(fixed, x, y, xt)
+        K_cho, K_inv_Y = gp.posterior_factors_covariant(fixed, x, y)
+        L, M_ = len(F), X.shape[1]
+        cal = ClosedSobol.from_arrays(F, K_cho, K_inv_Y, lengthscales, x, is_F_diagonal=False,
+                                      L=L, M=M_, N=X.shape[0])
+        slices = tuple(slice_of(m, M_) for slice_of in SLICE_KINDS.values() for m in range(M_))
+        out = cal.marginalize_intervals(slices)
+        for i, kind in enumerate(SLICE_KINDS):
+            for key in 'SV':
+                tables[f'{kind} {key}'] = out[key][..., i * M_:(i + 1) * M_]
+        tables['full S'], tables['full V'] = cal.S, cal.V[0]
+    return {key: value.detach().cpu().numpy() for key, value in tables.items()}
+
+
+def covariant_card_against_cpu(torch, user):
+    """Phase 7, the reference check at the installation test's size
+    (OAKLEY2004, N=300, M=7, L=3, K=2): run.gpr variant then covariant on the
+    card in float32 with the kernel covariance trained, so F is
+    non-diagonal; then for each fold, from the same float64 inputs on both
+    devices, the LML, its gradient, the predictions at the test points and
+    the GSA's S and V, held within CARD_CPU_TOL of each table's largest
+    entry on the CPU."""
+    import numpy as np
+    from romcomma_tpu_torch.data.storage import Fold
+    root = ROOT / 'build' / 'chip_smoke_covariant'
+    shutil.rmtree(root, ignore_errors=True)
+    np_seed(SEED)
+    noise = user.sample.GaussianNoise.Variance(L=len(user.functions.OAKLEY2004), magnitude=0.04)
+    repo = user.sample.Function(root, user.sample.DOE.latin_hypercube, user.functions.OAKLEY2004,
+                                N=INSTALLATION_N, M=INSTALLATION_M, noise_variance=noise,
+                                overwrite_existing=True, seed=SEED).repo.into_K_folds(K)
+    t0 = time.perf_counter()
+    names = user.run.gpr('gpr', repo, is_read=False, is_covariant=None, is_isotropic=None,
+                         maxiter=MAXITER, kernel={'covariance': True})
+    print(f'installation size N={INSTALLATION_N} M={INSTALLATION_M}: run.gpr {names} on the card '
+          f'(kernel covariance trained) {time.perf_counter() - t0:.2f} s', flush=True)
+    worst = {}
+    for k in repo.folds:
+        fold = Fold(repo, k)
+        raw, F, ls, _ = trained_covariant(torch, fold.folder / 'gpr.c.a', 'cpu', torch.float64)
+        require(np.abs(F - np.diag(np.diag(F))).max() > 0, f'fold {k}: F is diagonal: {F}')
+        inputs = (raw, fold.X.to_numpy(dtype=float), fold.Y.to_numpy(dtype=float),
+                  fold.test_x.to_numpy(dtype=float), F, ls)
+        card = covariant_tables(torch, *inputs, on=CARD)
+        with user.contexts.Environment('the covariant tables on the CPU', device='CPU'):
+            cpu = covariant_tables(torch, *inputs, on='cpu')
+        errors = {}
+        for key, want in cpu.items():
+            require(bool(np.isfinite(card[key]).all()), f'fold {k}: {key} is not finite')
+            errors[key] = float(np.abs(card[key] - want).max()) / (float(np.abs(want).max()) or 1.0)
+            worst[key] = max(worst.get(key, 0.0), errors[key])
+        print(f'fold {k} N={fold.N}: F off-diagonal up to {np.abs(F - np.diag(np.diag(F))).max():.4f}; '
+              f'worst |card - CPU| / max |CPU|: ' + ', '.join(f'{key} {e:.2e}'
+                                                             for key, e in errors.items()),
+              flush=True)
+    print(f'card against the CPU, covariant, largest over folds: {max(worst.values()):.3e} '
+          f'(limit {CARD_CPU_TOL}) at {max(worst, key=worst.get)}', flush=True)
+    require(max(worst.values()) <= CARD_CPU_TOL, worst)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -696,13 +1102,25 @@ def main() -> int:
     gsa_card_against_cpu(torch, user)
     print(f'phase 6: {time.perf_counter() - t:.2f} s', flush=True)
 
+    t = phase(f'7. covariant MOGP: run.gpr (is_covariant=True, lengthscales frozen) on phase 4\'s '
+              f'repository, L*N = 12288, 12288, 24576, maxiter={MAXITER}, float32; its GSA')
+    covariant_launches, covariant_seconds, covariant_worst = covariant_main_path(
+        torch, user, gram_kernels, repo)
+    profile_covariant(torch, gram_kernels, repo)
+    gradient_worst = check_covariant_gradients(torch, gram_kernels, repo)
+    covariant_gsa(torch, user, gram_kernels, repo)
+    covariant_card_against_cpu(torch, user)
+    print(f'phase 7: {time.perf_counter() - t:.2f} s (run.gpr covariant {covariant_seconds:.2f} s); '
+          f'worst LML error / bound {covariant_worst:.3e}; worst CovariantUpperLML error / '
+          f'limit {gradient_worst:.3e}', flush=True)
+
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'unit_gram', 'route': 'cuda',
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
-        'launches': launches, 'max_abs_err': max_err,
+        'launches': launches + covariant_launches, 'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -44,6 +44,18 @@ _PER_SLICE_ERRORS_LATER = (
     'per-slice error path (ClosedSobolWithError.marginalize), which is not ported to '
     'romcomma_tpu_torch yet: ROADMAP "Still to port", the per-slice error path')
 
+#: romcomma_tpu cannot compute standard errors of a covariant model either: its
+#: error sweep solves the psi factors, N rows per output, against the (LN, LN)
+#: covariant K_cho and raises there (romcomma_tpu/gsa/factorized_errors.py:693-703,
+#: ``_psi_solve``: "Incompatible shapes for arguments to triangular_solve"); the
+#: port's _psi_solve would fail the same way, so it is refused before any work.
+COVARIANT_ERRORS_UNSUPPORTED = (
+    'standard errors (is_error_calculated=True) of a covariant MOGP are not computed: '
+    'romcomma_tpu cannot compute them either, since its error sweep solves the N-row psi '
+    'factors against the (LN, LN) covariant K_cho and fails there '
+    '(romcomma_tpu/gsa/factorized_errors.py:693-703, _psi_solve). Run the covariant GSA '
+    'with is_error_calculated=False.')
+
 
 def _f64(a) -> torch.Tensor:
     """a as a float64 tensor on the compute device."""
@@ -596,6 +608,8 @@ def marginalize_all_kinds(gp, kind_slices: 'Dict[str, Tuple[Tuple[int, int], ...
     Returns ({kind: results}, extras): results[key] has the slice axis last;
     extras = {'V0','S'[,'T']}, the quantities Sobol._post_calibrate needs.
     """
+    if is_error_calculated and gp.is_covariant:
+        raise NotImplementedError(COVARIANT_ERRORS_UNSUPPORTED)
     cls = ClosedSobolWithError if is_error_calculated else ClosedSobol
     meta = {k: v for k, v in meta.items() if k not in ('folder', 'm', 'M')}
     is_F_diagonal = meta.pop('is_F_diagonal', None)

@@ -1,26 +1,34 @@
-"""Functional variant GP core: log marginal likelihood, calibration,
+"""Functional multi-output GP core: log marginal likelihood, calibration,
 prediction and posterior factors, as plain functions on tensors.
 
-Counterpart of the variant half of ``romcomma_tpu/models/gp.py``: L
-independent ARD-RBF GPs. Where the JAX package vmaps over the output axis,
-the grams and factorizations here carry the L axis as a batch dimension, and
-the L calibrations are independent L-BFGS-B descents run one after the other
-(the reference's per-GP scipy optimizations, gpr/models.py:359-361).
+Counterpart of ``romcomma_tpu/models/gp.py``, with its two code paths:
 
-Shapes follow the reference conventions, so a GSA layer can consume
-``K_cho`` (L,N,N) and ``K_inv_Y`` (L,1,N) unchanged (gpr/models.py:427-444).
+  - variant: L independent ARD-RBF GPs. Where the JAX package vmaps over the
+    output axis, the grams and factorizations here carry the L axis as a
+    batch dimension, and the L calibrations are independent L-BFGS-B descents
+    run one after the other (the reference's per-GP scipy optimizations,
+    gpr/models.py:359-361).
+  - covariant: one (LN,LN) system with full (L,L) signal and noise
+    covariances (reference math: gpf/models.py:73-82, gpf/likelihoods.py:64-67).
+
+Shapes follow the reference conventions, so the GSA layer consumes
+``K_cho`` (L,N,N) | (LN,LN) and ``K_inv_Y`` (L,1,N) unchanged
+(gpr/models.py:427-444).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from romcomma_tpu_torch.models.params import (VariantParams, variant_constrain,
+from romcomma_tpu_torch.models.params import (CovariantParams, VariantParams,
+                                              covariant_constrain, variant_constrain,
                                               variant_select)
 from romcomma_tpu_torch.ops import lbfgs
-from romcomma_tpu_torch.ops.gram import rbf_gram, rbf_gram_variant
+from romcomma_tpu_torch.ops.gram import (rbf_gram, rbf_gram_covariant, rbf_gram_covariant_unit,
+                                         rbf_gram_variant)
 from romcomma_tpu_torch.ops.linalg import add_diag, cho_solve, cholesky, mvn_logpdf, tri_solve
 
 
@@ -43,7 +51,8 @@ def lml_variant(raw: VariantParams, x: torch.Tensor, y: torch.Tensor) -> torch.T
                         for l in range(y.shape[1])])
 
 
-def _merge(p: VariantParams, frozen: VariantParams, mask: Dict[str, float]) -> VariantParams:
+def _merge(p: Dict[str, torch.Tensor], frozen: Dict[str, torch.Tensor],
+           mask: Dict[str, float]) -> Dict[str, torch.Tensor]:
     """eff = frozen + mask * (p - frozen): frozen leaves never move."""
     return {name: frozen[name] + mask[name] * (p[name] - frozen[name]) for name in p}
 
@@ -152,3 +161,202 @@ def posterior_factors_variant(raw: VariantParams, x: torch.Tensor, y: torch.Tens
     chol = cholesky(add_diag(K, c['noise'][:, None]))
     k_inv_y = cho_solve(chol, y64.T[..., None])                         # (L,N,1)
     return chol, k_inv_y.mT                                             # (L,1,N)
+
+
+# --------------------------------------------------------------------------- #
+# Covariant path: one (LN,LN) system.
+# --------------------------------------------------------------------------- #
+
+def _add_noise(K4: torch.Tensor, noise_cov: torch.Tensor) -> torch.Tensor:
+    """(LN,LN) noisy gram K + Sigma kron I_N (gpf/likelihoods.py:64-67) from a
+    fresh (L,N,L,N) gram K4: Sigma is added in place on the (L,L,N) diagonal
+    of the blocks, so neither an (N,N) identity nor an (LN,LN) index is ever
+    built."""
+    L, N = K4.shape[:2]
+    K4.diagonal(dim1=1, dim2=3).add_(noise_cov[:, :, None])
+    return K4.reshape(L * N, L * N)
+
+
+def _assemble(unit4: torch.Tensor, F: torch.Tensor, noise_cov: torch.Tensor) -> torch.Tensor:
+    """(LN,LN) noisy gram from the unit gram (L,N,L,N): one product with F."""
+    return _add_noise(F[:, None, :, None] * unit4, noise_cov)
+
+
+def _covariant_noisy_K(c: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(LN,LN) noisy gram of constrained covariant params c at inputs x."""
+    return _add_noise(rbf_gram_covariant(x, x, c['lengthscales'], c['F']), c['noise_cov'])
+
+
+def lml_covariant(raw: CovariantParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """LML of the covariant MOGP. y: (N,L), stacked to (LN,1) output-major
+    exactly like the reference (gpf/models.py:130)."""
+    chol = cholesky(_covariant_noisy_K(covariant_constrain(raw), x))
+    yy = y.T.reshape(-1, 1)
+    return torch.sum(mvn_logpdf(yy, torch.zeros_like(yy), chol))
+
+
+class CovariantUpperLML(torch.autograd.Function):
+    """lml(F, noise_cov) of the ls-frozen covariant MOGP over a fixed unit
+    gram, with the analytic backward of romcomma_tpu's custom-VJP
+    ``covariant_upper_lml``:
+
+        dLML/dF[i,j]  = 1/2 sum(W_blk(i,j) * unit_blk(i,j)),
+        dLML/dnz[i,j] = 1/2 tr(W_blk(i,j)),       W = alpha alpha^T - K^-1,
+
+    so the backward neither rebuilds the gram nor differentiates through the
+    Cholesky. The gradients are per-entry partials of F and noise_cov as free
+    (L,L) matrices; covariant_constrain's SPD parameterization outside
+    symmetrizes them through ordinary autograd.
+
+    Forward inputs: F, noise_cov (L,L); unit4 (L,N,L,N), the unit gram; yy
+    (LN,1), the outputs stacked output-major. A factorization that breaks
+    down gives lml = -inf (through ops.linalg.cholesky's NaN), so a
+    minimizer of -lml sees +inf and backs off."""
+
+    @staticmethod
+    def forward(ctx, F, noise_cov, unit4, yy):
+        chol = cholesky(_assemble(unit4, F, noise_cov))
+        z = tri_solve(chol, yy)
+        value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
+                 - 0.5 * yy.shape[0] * math.log(2.0 * math.pi))
+        value = torch.where(torch.isfinite(value), value, -torch.inf)
+        alpha = tri_solve(chol, z, trans=True)                          # K^-1 yy
+        ctx.save_for_backward(chol, alpha, unit4)
+        return value
+
+    @staticmethod
+    def backward(ctx, gbar):
+        chol, alpha, unit4 = ctx.saved_tensors
+        L, N = unit4.shape[:2]
+        W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])
+        W4 = W.view(L, N, L, N)
+        dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
+        dF = 0.5 * W4.mul_(unit4).sum(dim=(1, 3))
+        return gbar * dF, gbar * dnoise, None, None
+
+
+def covariant_upper_lml(x: torch.Tensor, lengthscales: torch.Tensor, y: torch.Tensor
+                        ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """lml(F, noise_cov) of the ls-frozen covariant MOGP at inputs x (N,M),
+    outputs y (N,L) and fixed lengthscales (L,M), through CovariantUpperLML:
+    romcomma_tpu's ``covariant_upper_lml``. The unit gram is built once, here,
+    through the unit-gram kernel on a float32 CUDA device; each call then
+    costs one Cholesky forward and one cholesky_inverse backward."""
+    with torch.no_grad():
+        unit4 = rbf_gram_covariant_unit(x, lengthscales.detach())
+    yy = y.T.reshape(-1, 1)
+    return lambda F, noise_cov: CovariantUpperLML.apply(F, noise_cov, unit4, yy)
+
+
+def _covariant_objective(raw: CovariantParams, mask: Dict[str, float], x: torch.Tensor,
+                         y: torch.Tensor):
+    """Masked negative-LML objective for covariant calibration, and its merge.
+
+    With the lengthscales frozen by the mask (the reference's default
+    covariant configuration, gpr/kernels.py:54-57) each evaluation is
+    CovariantUpperLML over a unit gram built once, before the descent: the
+    reference's K_unit_variance cache (gpf/kernels.py:74-104), so only the
+    O((LN)^3) factorization and its analytic backward remain per evaluation.
+    With them trainable each evaluation rebuilds the gram, and autograd runs
+    through the Cholesky and the unit gram's backward."""
+    frozen = {name: value.detach() for name, value in raw.items()}
+    ls_frozen = not mask['raw_lengthscales']
+    if ls_frozen:
+        lml = covariant_upper_lml(x, covariant_constrain(frozen)['lengthscales'], y)
+
+    def merge(p: CovariantParams) -> CovariantParams:
+        return _merge(p, frozen, mask)
+
+    def objective(p: CovariantParams) -> torch.Tensor:
+        if ls_frozen:
+            c = covariant_constrain(merge(p))
+            return -lml(c['F'], c['noise_cov'])
+        return -lml_covariant(merge(p), x, y)
+
+    return objective, merge
+
+
+def calibrate_covariant(raw: CovariantParams, mask: Dict[str, float], x: torch.Tensor,
+                        y: torch.Tensor, maxiter: int = 5000, gtol: float = 1e-16,
+                        ftol: float = lbfgs.SCIPY_FTOL) -> Tuple[CovariantParams, float, int, str]:
+    """One L-BFGS-B maximization of the covariant LML over _covariant_objective.
+    x/y are cast to the params' working dtype. Returns (raw_opt, lml,
+    iterations, stop), stop being scipy's reason for stopping."""
+    wd = raw['raw_kernel_chol_diag'].dtype
+    objective, merge = _covariant_objective(raw, mask, x.to(wd), y.to(wd))
+    res = lbfgs.minimize(objective, {name: value.detach() for name, value in raw.items()},
+                         maxiter=maxiter, gtol=gtol, ftol=ftol)
+    return merge(res.params), -res.value, res.iterations, res.message
+
+
+def predict_covariant(raw: CovariantParams, x: torch.Tensor, y: torch.Tensor, xs: torch.Tensor,
+                      y_instead_of_f: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean/variance at xs for the covariant MOGP: (mean (o,L),
+    var (o,L)), the diagonal (over both output and sample) of the full
+    predictive covariance (gpf/models.py:84-111 with full_cov =
+    full_output_cov = False), in the dtype of the params."""
+    K_cho, K_inv_Y = _covariant_factors(raw, x, y)
+    return predict_covariant_from_factors(raw, K_cho, K_inv_Y, x, xs, y_instead_of_f)
+
+
+def predict_covariant_from_factors(raw: CovariantParams, K_cho: torch.Tensor,
+                                   K_inv_Y: torch.Tensor, x: torch.Tensor, xs: torch.Tensor,
+                                   y_instead_of_f: bool = True
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """predict_covariant reusing a cached factorization (K_cho (LN,LN),
+    K_inv_Y (L,1,N)): only O(LN Lo) work per call. The variance solve runs in
+    the working dtype."""
+    c = covariant_constrain(raw)
+    L = c['lengthscales'].shape[0]
+    N, o = x.shape[0], xs.shape[0]
+    Kmn = rbf_gram_covariant(x, xs, c['lengthscales'], c['F']).reshape(L * N, L * o)
+    mean = (Kmn.to(K_inv_Y.dtype).T @ K_inv_Y.reshape(L * N, 1)).reshape(L, o).T
+    A = tri_solve(K_cho.to(Kmn.dtype), Kmn)                             # (LN,Lo)
+    var_f = torch.clamp((torch.diagonal(c['F'])[:, None] - torch.sum(A * A, dim=0).reshape(L, o)).T,
+                        min=0.0)
+    var = var_f + torch.diagonal(c['noise_cov'])[None, :] if y_instead_of_f else var_f
+    return mean, var.to(mean.dtype)
+
+
+def predict_covariant_full(raw: CovariantParams, x: torch.Tensor, y: torch.Tensor,
+                           xs: torch.Tensor, full_cov: bool = False,
+                           full_output_cov: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Latent prediction p(f*|Y) for the covariant MOGP with the reference's
+    predict_f shape contract (gpf/models.py:84-111), including the
+    ``full_cov => full_output_cov`` rule. Returns (mean (n,L), var) with var
+    (n,L); (n,L,L) if full_output_cov; (n,n,L,L) if full_cov. No noise."""
+    full_output_cov = True if full_cov else full_output_cov
+    c = covariant_constrain(raw)
+    L = c['lengthscales'].shape[0]
+    N, n = x.shape[0], xs.shape[0]
+    chol = cholesky(_covariant_noisy_K(c, x))
+    Kmn = rbf_gram_covariant(x, xs, c['lengthscales'], c['F']).reshape(L * N, L * n)
+    A = tri_solve(chol, Kmn)                                            # (LN,Ln)
+    alpha = tri_solve(chol, y.T.reshape(-1, 1))                         # (LN,1)
+    mean = (A.T @ alpha).reshape(L, n).T                                # (n,L)
+    Knn = rbf_gram_covariant(xs, xs, c['lengthscales'], c['F'])         # (L,n,L,n)
+    f_var = Knn - (A.T @ A).reshape(L, n, L, n)
+    if full_output_cov:
+        f_var = torch.permute(f_var, (0, 2, 1, 3))                      # (L,L,n,n)
+    else:
+        f_var = torch.diagonal(f_var, dim1=0, dim2=2)                   # (n,n,L)
+        f_var = torch.permute(f_var, (2, 0, 1))                         # (L,n,n)
+    if not full_cov:
+        f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+    return mean, torch.permute(f_var, tuple(reversed(range(f_var.dim()))))
+
+
+def _covariant_factors(raw: CovariantParams, x: torch.Tensor, y: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K_cho (LN,LN), K_inv_Y (L,1,N)) in the dtype of raw, x and y."""
+    L, N = y.shape[1], x.shape[0]
+    chol = cholesky(_covariant_noisy_K(covariant_constrain(raw), x))
+    return chol, cho_solve(chol, y.T.reshape(-1, 1)).reshape(L, N)[:, None, :]
+
+
+def posterior_factors_covariant(raw: CovariantParams, x: torch.Tensor, y: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K_cho (LN,LN), K_inv_Y (L,1,N)) per gpr/models.py:427-444, ALWAYS in
+    float64 on the device of x, as the variant path's."""
+    return _covariant_factors({name: value.to(torch.float64) for name, value in raw.items()},
+                              x.to(torch.float64), y.to(torch.float64))

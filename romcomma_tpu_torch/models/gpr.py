@@ -4,11 +4,11 @@ Counterpart of ``romcomma_tpu/models/gpr.py`` and of the reference's
 ``romcomma/gpr/models.py``: the same folder layout (``fold.k/<name>/`` with
 ``kernel/``, ``likelihood/``, ``kernel.csv`` type tag, ``test.csv``,
 ``test_summary.csv``) and the same META/meta.json option flow. Calibration is
-L independent scipy L-BFGS-B descents on a torch LML (models.gp).
+L independent scipy L-BFGS-B descents on a torch LML (models.gp) for the
+variant MOGP, one for the covariant MOGP.
 
-This port covers the variant MOGP below ``MOGP.LARGE_N_THRESHOLD`` rows. A
-covariant model can be constructed and persisted, but not calibrated or
-predicted yet.
+This port covers the variant MOGP below ``MOGP.LARGE_N_THRESHOLD`` rows, and
+the covariant MOGP at every L*N.
 """
 
 from __future__ import annotations
@@ -27,10 +27,10 @@ from romcomma_tpu_torch.base.definitions import (FLOAT, LIKELIHOOD_VARIANCE_FLOO
 from romcomma_tpu_torch.data.storage import Fold, Frame
 from romcomma_tpu_torch.models import gp
 from romcomma_tpu_torch.models.kernels import Kernel, RBF
-from romcomma_tpu_torch.models.params import variant_constrain, variant_init, variant_mask
-
-_COVARIANT_LATER = ('the covariant MOGP is not ported to romcomma_tpu_torch yet; it waits '
-                    'for the covariant slice of the port')
+from romcomma_tpu_torch.models.params import (covariant_constrain, covariant_init,
+                                              covariant_mask, variant_constrain, variant_init,
+                                              variant_mask)
+from romcomma_tpu_torch.ops.gram import rbf_gram_covariant, rbf_gram_variant
 
 
 class Likelihood(Model):
@@ -137,8 +137,15 @@ class GPR(Model):
 
     def broadcast_parameters(self, is_covariant: bool, is_isotropic: bool) -> 'GPR':
         """Grow parameters to the requested covariance/anisotropy
-        (reference gpr/models.py:274-288). The constructor calls this
-        unconditionally, as the reference does (gpr/models.py:321)."""
+        (reference gpr/models.py:274-288).
+
+        Reference-parity quirk: the constructor calls this unconditionally
+        (reference gpr/models.py:321), and ``broadcast_value(is_diagonal=
+        True)`` zeroes the off-diagonals of square targets, so RELOADING a
+        covariant model diagonalizes a trained non-diagonal noise covariance,
+        as the reference and romcomma_tpu do. The persisted log_marginal of a
+        covariant model reflects the full noise covariance it was trained
+        with, not the diagonalized reload."""
         self._posterior_cache = None
         target_shape = (self._L, self._L) if is_covariant else (1, self._L)
         self._likelihood.data.variance.broadcast_value(target_shape=target_shape, is_diagonal=True)
@@ -153,11 +160,17 @@ class GPR(Model):
         return self._likelihood.is_covariant
 
     def _variant_raw(self):
-        if self.is_covariant:
-            raise NotImplementedError(_COVARIANT_LATER)
         return variant_init(self._kernel.data.variance.np[0],
                             self._kernel.data.lengthscales.np,
                             self._likelihood.data.variance.np[0])
+
+    def _covariant_raw(self):
+        return covariant_init(self._kernel.data.variance.np,
+                              self._kernel.data.lengthscales.np,
+                              self._likelihood.data.variance.np)
+
+    def _raw(self):
+        return self._covariant_raw() if self.is_covariant else self._variant_raw()
 
     @staticmethod
     def _tensor(a: np.ndarray, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -183,19 +196,21 @@ class GPR(Model):
         against the float64 factors. At high condition numbers the float32
         triangular solve loses up to a few percent of SD, which flips Z^2 > 4
         outlier classifications in test(). Pass exact_sd=False for throughput
-        when only the mean matters: the gram then runs in the working dtype."""
-        if self.is_covariant:
-            raise NotImplementedError(_COVARIANT_LATER)
+        when only the mean matters: the gram then runs in the working dtype.
+        A covariant model predicts the same way, from its (LN,LN) factor, on
+        the compute device (romcomma_tpu moves its float32-mode covariant
+        predict to the host CPU instead)."""
         K_cho, K_inv_Y = self.posterior_factors
         dt = torch.float64 if exact_sd else None
-        raw = {name: value.to(dt or value.dtype) for name, value in self._variant_raw().items()}
+        raw = {name: value.to(dt or value.dtype) for name, value in self._raw().items()}
+        from_factors = (gp.predict_covariant_from_factors if self.is_covariant else
+                        gp.predict_variant_from_factors)
         X, xs_all = self._tensor(self._X, dt), self._tensor(x, dt)
         means, variances = [], []
         with torch.no_grad():
             for start in range(0, xs_all.shape[0], self.PREDICT_CHUNK):
-                mean, var = gp.predict_variant_from_factors(
-                    raw, K_cho, K_inv_Y, X, xs_all[start:start + self.PREDICT_CHUNK],
-                    y_instead_of_f)
+                mean, var = from_factors(raw, K_cho, K_inv_Y, X,
+                                         xs_all[start:start + self.PREDICT_CHUNK], y_instead_of_f)
                 means.append(mean)
                 variances.append(var)
         mean = torch.cat(means).cpu().numpy()
@@ -214,16 +229,13 @@ class GPR(Model):
             full_cov=False, full_output_cov=True  -> var (n,L,L)
             full_cov=True                         -> var (n,n,L,L)
 
-        The independent outputs embed their per-output covariances on the
-        (L,L) diagonal."""
-        if self.is_covariant:
-            raise NotImplementedError(_COVARIANT_LATER)
+        A variant model embeds its per-output covariances on the (L,L)
+        diagonal."""
         xs = self._tensor(x)
+        full = gp.predict_covariant_full if self.is_covariant else gp.predict_variant_full
         with torch.no_grad():
-            mean, var = gp.predict_variant_full(self._variant_raw(), self._tensor(self._X),
-                                                self._tensor(self._Y), xs,
-                                                full_cov=bool(full_cov),
-                                                full_output_cov=bool(full_output_cov))
+            mean, var = full(self._raw(), self._tensor(self._X), self._tensor(self._Y), xs,
+                             full_cov=bool(full_cov), full_output_cov=bool(full_output_cov))
         mean, var = mean.cpu().numpy(), var.cpu().numpy()
         if self._mean_function is not None:
             mean = mean + self._mean_function(xs.cpu()).numpy()
@@ -234,23 +246,48 @@ class GPR(Model):
         """(K_cho, K_inv_Y) from one float64 Cholesky on the compute device.
         Cached per instance; the cache is invalidated whenever the
         parameters change (calibrate / broadcast)."""
-        if self.is_covariant:
-            raise NotImplementedError(_COVARIANT_LATER)
         if self._posterior_cache is None:
+            factors = (gp.posterior_factors_covariant if self.is_covariant else
+                       gp.posterior_factors_variant)
             with torch.no_grad():
-                self._posterior_cache = gp.posterior_factors_variant(
-                    self._variant_raw(), self._tensor(self._X), self._tensor(self._Y))
+                self._posterior_cache = factors(self._raw(), self._tensor(self._X),
+                                                self._tensor(self._Y))
         return self._posterior_cache
 
     @property
     def K_cho(self) -> torch.Tensor:
-        """(L,N,N) Cholesky of the noisy gram (reference gpr/models.py:427-439)."""
+        """(L,N,N) variant | (LN,LN) covariant Cholesky of the noisy gram
+        (reference gpr/models.py:427-439)."""
         return self.posterior_factors[0]
 
     @property
     def K_inv_Y(self) -> torch.Tensor:
         """(L,1,N) == ChoSolve(K_cho, Y) (reference gpr/models.py:441-444)."""
         return self.posterior_factors[1]
+
+    def check_K_inv_Y(self, x: np.ndarray) -> np.ndarray:
+        """Numerical self-test: the RMS over x of predict(x) - k(x,X) K^-1 Y,
+        per output (reference gpr/models.py:446-463). The gram is built in the
+        working dtype (through the unit-gram kernel on a float32 CUDA device)
+        and contracted against the float64 K^-1 Y."""
+        predicted = torch.as_tensor(self.predict(x)[0], device=device())
+        kiy = self.K_inv_Y
+        xs = self._tensor(x)
+        with torch.no_grad():
+            if self.is_covariant:
+                c = covariant_constrain(self._covariant_raw())
+                kern = rbf_gram_covariant(xs, self._tensor(self._X), c['lengthscales'],
+                                          c['F'])                                # (L,o,L,N)
+                result = torch.einsum('loLN, LiN -> ol', kern.to(kiy.dtype), kiy)
+            else:
+                c = variant_constrain(self._variant_raw())
+                kern = rbf_gram_variant(xs, self._tensor(self._X), c['lengthscales'],
+                                        c['variance'])                           # (L,o,N)
+                result = torch.einsum('loN, liN -> ol', kern.to(kiy.dtype), kiy)
+        if self._mean_function is not None:
+            result = result + self._mean_function(xs.cpu()).to(result)
+        result = result - predicted
+        return torch.sqrt(torch.sum(result * result, dim=0) / result.shape[0]).cpu().numpy()
 
     def predict_df(self, x: np.ndarray, y_instead_of_f: bool = True,
                    is_normalized: bool = True) -> pd.DataFrame:
@@ -312,8 +349,9 @@ class MOGP(GPR):
 
     META: Dict[str, Any] = {'maxiter': 5000, 'gtol': 1e-16}
 
-    #: N at/above which the JAX package switches variant calibration to its
-    #: blocked distributed engine. That route is not ported yet.
+    #: N at/above which variant calibration takes romcomma_tpu's blocked
+    #: distributed engine, not ported yet. Overridable per model via
+    #: meta['large_n_threshold'].
     LARGE_N_THRESHOLD: int = 10000
 
     def _calibration_options(self, **kwargs):
@@ -347,13 +385,43 @@ class MOGP(GPR):
         self.write_meta(meta)
         return meta
 
+    def _calibrate_covariant(self, meta, kernel_options, likelihood_options) -> Dict[str, Any]:
+        """One covariant descent (romcomma_tpu gpr.py:496-520) at every L*N:
+        romcomma_tpu's L*N threshold between its fused on-device descent and
+        its host-paced one guards a TPU compiler limit, and both of the
+        port's descents are the same eager scipy loop. The persisted
+        log-marginal is evaluated afresh from the written CSV parameters (see
+        _finish_variant_calibration); meta's result also records scipy's
+        reason for stopping."""
+        mask = covariant_mask(kernel_variance=kernel_options['variance'],
+                              kernel_covariance=kernel_options['covariance'],
+                              lengthscales=bool(kernel_options['lengthscales']['covariant']),
+                              noise_variance=likelihood_options['variance'],
+                              noise_covariance=likelihood_options['covariance'])
+        X, Y = self._tensor(self._X), self._tensor(self._Y)
+        raw_opt, _, iterations, stop = gp.calibrate_covariant(
+            self._covariant_raw(), mask, X, Y, maxiter=int(meta.get('maxiter', 5000)),
+            gtol=float(meta.get('gtol', 1e-16)))
+        with torch.no_grad():
+            c = {name: value.cpu().numpy() for name, value in covariant_constrain(raw_opt).items()}
+        self._kernel.data.replace(variance=c['F'], lengthscales=c['lengthscales'])
+        self._likelihood.data.replace(variance=c['noise_cov'])
+        with torch.no_grad():
+            lml = float(gp.lml_covariant(self._covariant_raw(), X, Y))
+        self._likelihood.data.replace(log_marginal=np.atleast_2d(lml))
+        meta.update({'result': f'Converged in {int(iterations)} L-BFGS iterations, lml={lml} '
+                               f'(scipy: {stop})',
+                     'kernel': kernel_options, 'likelihood': likelihood_options})
+        self.write_meta(meta)
+        return meta
+
     def calibrate(self, method: str = 'L-BFGS-B', **kwargs) -> Dict[str, Any]:
         """Maximize the LML; write optimized parameters back to the
         kernel/likelihood CSV frames (reference gpr/models.py:345-373)."""
-        if self.is_covariant:
-            raise NotImplementedError(_COVARIANT_LATER)
         self._posterior_cache = None
         meta, kernel_options, likelihood_options = self._calibration_options(**kwargs)
+        if self.is_covariant:
+            return self._calibrate_covariant(meta, kernel_options, likelihood_options)
         threshold = int(meta.get('large_n_threshold', self.LARGE_N_THRESHOLD))
         if self._N >= threshold:
             raise NotImplementedError(

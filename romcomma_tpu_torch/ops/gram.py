@@ -10,6 +10,10 @@ CPU tensor) takes the plain path below, which is also the kernel's oracle.
 
 Variant kernel (independent outputs, gpflow RBF per output l):
     K_l[n,n'] = s2_l * exp(-1/2 sum_m ((x_n[m]-x_n'[m]) / lam_l[m])^2)
+Covariant kernel (MOStationary/RBF, reference gpf/kernels.py:140-154):
+    K[l,n,j,n'] = F[l,j] * exp(-1/2 sum_m (x_n[m]/lam_l[m] - x_n'[m]/lam_j[m])^2)
+i.e. the cross-output blocks difference the *differently scaled* inputs, one
+(L*A, L*B) unit gram over the inputs scaled per output and stacked.
 """
 
 from __future__ import annotations
@@ -62,3 +66,32 @@ def rbf_gram_variant(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Ten
         return gram_kernels.rbf_gram_variant_kernel(x1, x2, lengthscales, variance)
     ls = lengthscales[:, None, :]
     return variance[:, None, None] * torch.exp(-0.5 * _sqdist(x1 / ls, x2 / ls))
+
+
+def rbf_gram_covariant(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
+                       F: torch.Tensor) -> torch.Tensor:
+    """Covariant multi-output ARD-RBF gram.
+
+    Args:
+        x1: (A,M). x2: (B,M). lengthscales: (L,M). F: (L,L) signal covariance.
+    Returns: (L,A,L,B).
+    """
+    if _use_kernel(x1, x2, lengthscales, F):
+        return gram_kernels.rbf_gram_covariant_kernel(x1, x2, lengthscales, F)
+    L = lengthscales.shape[0]
+    unit = torch.exp(-0.5 * _sqdist(gram_kernels.stack_scaled(x1, lengthscales),
+                                    gram_kernels.stack_scaled(x2, lengthscales)))
+    return F[:, None, :, None] * unit.reshape(L, x1.shape[0], L, x2.shape[0])
+
+
+def rbf_gram_covariant_unit(x: torch.Tensor, lengthscales: torch.Tensor) -> torch.Tensor:
+    """Unit-variance covariant gram (L,N,L,N): the factor the reference
+    caches when only the variances train (gpf/kernels.py:74-104). A float32
+    CUDA build is one kernel launch on one stacked operand."""
+    L, N = lengthscales.shape[0], x.shape[0]
+    u = gram_kernels.stack_scaled(x, lengthscales)
+    if _use_kernel(x, lengthscales):
+        unit = gram_kernels.unit_gram(u, u)
+    else:
+        unit = torch.exp(-0.5 * _sqdist(u, u))
+    return unit.reshape(L, N, L, N)

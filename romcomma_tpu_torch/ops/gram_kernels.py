@@ -138,6 +138,10 @@ def unit_gram_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if v.shape[1] != M or M < 1:
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)} and {tuple(v.shape)} '
                          'need one common, non-empty M.')
+    # The kernel takes A, B and M as 32-bit ints and indexes rows and columns
+    # with them; every offset into the operands, the packed scratch and the
+    # output is size_t, so the output holds any A x B, the covariant path's
+    # (L*N)^2 included.
     if max(A * M, B * M) > _INT_MAX:
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)}, {tuple(v.shape)} '
                          'exceed the kernel\'s 32-bit indexing.')
@@ -198,6 +202,26 @@ def rbf_gram_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tens
     ls = torch.broadcast_to(lengthscales, (x1.shape[-1],))
     u = (x1 / ls).contiguous()
     return variance * unit_gram(u, u if x2 is x1 else (x2 / ls).contiguous())
+
+
+def stack_scaled(x: torch.Tensor, lengthscales: torch.Tensor) -> torch.Tensor:
+    """x (A,M) scaled by each output's lengthscales (L,M) and stacked
+    output-major, contiguous: (L*A, M), row l*A + a = x_a / lam_l."""
+    L, M = lengthscales.shape
+    return (x[None, :, :] / lengthscales[:, None, :]).reshape(L * x.shape[0], M).contiguous()
+
+
+def rbf_gram_covariant_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
+                              F: torch.Tensor) -> torch.Tensor:
+    """Covariant gram (L,A,L,B) = F[l,j] * unit_gram(x1/lam_l, x2/lam_j): ONE
+    kernel launch over the inputs scaled per output and stacked, (L*A, M)
+    against (L*B, M), with F applied outside. A training gram (x1 is x2)
+    hands the kernel one stacked tensor, as rbf_gram_kernel does."""
+    L = lengthscales.shape[0]
+    u = stack_scaled(x1, lengthscales)
+    unit = unit_gram(u, u if x2 is x1 else stack_scaled(x2, lengthscales))
+    unit = unit.reshape(L, x1.shape[0], L, x2.shape[0])
+    return F[:, None, :, None] * unit
 
 
 def rbf_gram_variant_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,

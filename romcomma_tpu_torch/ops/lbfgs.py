@@ -30,6 +30,7 @@ class MinimizeResult(NamedTuple):
     grad_norm: float
     iterations: int
     converged: bool    # True if scipy stopped on ftol/gtol rather than maxiter
+    message: str       # scipy's reason for stopping
 
 
 def minimize(fun: Callable[[Params], torch.Tensor], params: Params, maxiter: int = 5000,
@@ -86,4 +87,5 @@ def minimize(fun: Callable[[Params], torch.Tensor], params: Params, maxiter: int
     value, g = value_and_grad(res.x)
     grad_norm = float(np.max(np.abs(g))) if np.all(np.isfinite(g)) else np.inf
     converged = bool(res.success) and not (evaluations['first_nonfinite'] and res.nit == 0)
-    return MinimizeResult(unpack(res.x), value, grad_norm, int(res.nit), converged)
+    message = res.message.decode() if isinstance(res.message, bytes) else str(res.message)
+    return MinimizeResult(unpack(res.x), value, grad_norm, int(res.nit), converged, message)

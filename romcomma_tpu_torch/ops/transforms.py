@@ -58,5 +58,6 @@ def build_tril(diag: torch.Tensor, flat_lower: torch.Tensor) -> torch.Tensor:
     rows, cols = tril_indices_strict(diag.shape[-1])
     out = torch.diag(diag)
     if len(rows):
-        out = out.index_put((torch.as_tensor(rows), torch.as_tensor(cols)), flat_lower)
+        index = (torch.as_tensor(rows, device=diag.device), torch.as_tensor(cols, device=diag.device))
+        out = out.index_put(index, flat_lower)
     return out

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 from romcomma_tpu_torch.base.classes import Data
 from romcomma_tpu_torch.data.storage import Repository, Fold
-from romcomma_tpu_torch.gsa.calibrators import marginalize_all_kinds
+from romcomma_tpu_torch.gsa.calibrators import COVARIANT_ERRORS_UNSUPPORTED, marginalize_all_kinds
 from romcomma_tpu_torch.gsa.models import GSA, Sobol
 from romcomma_tpu_torch.models.gpr import MOGP
 from romcomma_tpu_torch.user import contexts, results
@@ -125,7 +125,16 @@ def gsa(name: str, repo: Repository, is_covariant: Optional[bool], is_isotropic:
     relative to the fold's folder.
 
     ``fold_parallel`` is accepted for compatibility with romcomma_tpu's
-    signature. The folds always run in the sequential per-fold loop here."""
+    signature. The folds always run in the sequential per-fold loop here.
+
+    Standard errors of a covariant model are not computed, as romcomma_tpu
+    cannot compute them either (``calibrators.COVARIANT_ERRORS_UNSUPPORTED``).
+    Asked for with ``is_covariant=True``, they raise NotImplementedError before
+    any work starts, unless ``ignore_exceptions``. With ``is_covariant=None``
+    the variant passes run, and the covariant pass raises, or is skipped under
+    ``ignore_exceptions``, as in romcomma_tpu."""
+    if is_error_calculated and is_covariant is True and not ignore_exceptions:
+        raise NotImplementedError(COVARIANT_ERRORS_UNSUPPORTED)
     kinds = GSA.ALL_KINDS if kinds is None else kinds
     kinds = (kinds,) if isinstance(kinds, GSA.Kind) else kinds
     if not isinstance(repo, Fold):

@@ -131,3 +131,83 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         gram_kernels.unit_gram_cuda(x, x.cpu())
     with pytest.raises(ValueError):
         gram_kernels.unit_gram_cuda(x, torch.randn(8, 4, device=cuda))
+
+
+def _covariant_inputs(L, A, B, M, on, seed):
+    """x1 (A,M), x2 (B,M), lengthscales (L,M) and a unit-diagonal F (L,L),
+    scaled so the stacked squared distances stay of order one."""
+    g = torch.Generator().manual_seed(seed)
+    x1, x2 = (torch.randn(n, M, generator=g) / math.sqrt(M) for n in (A, B))
+    ls = 0.7 + 0.6 * torch.rand(L, M, generator=g)
+    F = torch.full((L, L), 0.3) + 0.7 * torch.eye(L)
+    return [t.to(on) for t in (x1, x2, ls, F)]
+
+
+def _covariant_plain(x1, x2, ls, F):
+    L, A, B = ls.shape[0], x1.shape[0], x2.shape[0]
+    unit = gram_kernels.unit_gram_plain(gram_kernels.stack_scaled(x1, ls),
+                                        gram_kernels.stack_scaled(x2, ls))
+    return F[:, None, :, None] * unit.reshape(L, A, L, B)
+
+
+@pytest.mark.parametrize('L, A, B, M', [(3, 2048, 1536, 30), (3, 1000, None, 30), (2, 37, 61, 5)])
+def test_covariant_gram_matches_plain(cuda, L, A, B, M):
+    """The covariant gram's one launch over the stacked operands (one operand
+    when x1 is x2), forward and backward in x1, x2, lengthscales and F,
+    against the plain version: F entries <= 1, so the value tolerance holds."""
+    x1, x2, ls, F = _covariant_inputs(L, A, B or A, M, cuda, seed=A)
+    if B is None:
+        x2 = x1
+    before = gram_kernels.LAUNCHES
+    got = gram.rbf_gram_covariant(x1, x2, ls, F)
+    torch.cuda.synchronize()
+    assert gram_kernels.LAUNCHES == before + 1 and got.shape == (L, A, L, x2.shape[0])
+    torch.testing.assert_close(got, _covariant_plain(x1, x2, ls, F), rtol=VALUE_TOL,
+                               atol=VALUE_TOL)
+    gbar = torch.randn(got.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    grads = []
+    for fn in (gram_kernels.rbf_gram_covariant_kernel, _covariant_plain):
+        inputs = [t.clone().requires_grad_(True) for t in (x1, ls, F)]
+        xx2 = inputs[0] if B is None else x2.clone().requires_grad_(True)
+        leaves = inputs if B is None else inputs + [xx2]
+        grads.append(torch.autograd.grad(torch.sum(fn(inputs[0], xx2, *inputs[1:]) * gbar), leaves))
+    for got_grad, want in zip(*grads):
+        torch.testing.assert_close(got_grad, want, rtol=0.0,
+                                   atol=GRAD_RTOL * want.abs().max().item())
+
+
+def test_host_route_value_and_grad_matches_float64_plain(cuda):
+    """The lengthscale-frozen objective in float32 (unit gram from the
+    kernel, CovariantUpperLML's analytic backward) against autograd through
+    lml_covariant in float64 (plain gram) at L*N = 3000. The value is held to the first-order
+    bound of a float32 LML, 10 LN eps32 (max F_ll / min noise_ll + 1); the
+    gradients to 1e-2 of the largest entry, about cond(K) eps32 here
+    (cond(K) ~ LN max F_ll / min noise_ll ~ 3e4)."""
+    import numpy as np
+    from romcomma_tpu_torch.models import gp, params
+    L, N, M = 3, 1000, 30
+    rng = np.random.default_rng(8)
+    X = rng.uniform(size=(N, M))
+    Y = np.stack([np.sin(3 * X[:, l]) + X[:, l + 1] for l in range(L)], axis=1)
+    F, noise = 0.2 + 0.8 * np.eye(L), 0.1 * np.eye(L) + 0.01
+    values = (F, np.full((L, M), 2.0), noise)
+    mask = params.covariant_mask(kernel_covariance=True)
+    results = []
+    for dtype, route in ((torch.float32, 'upper'), (torch.float64, 'autograd')):
+        raw = {name: t.to(dtype) for name, t in params.covariant_init(*values, on=cuda).items()}
+        x, y = (torch.tensor(a, dtype=dtype, device=cuda) for a in (X, Y))
+        before = gram_kernels.LAUNCHES
+        objective, merge = gp._covariant_objective(raw, mask, x, y)
+        assert gram_kernels.LAUNCHES == before + (dtype == torch.float32)
+        if route == 'autograd':
+            objective = lambda p: -gp.lml_covariant(merge(p), x, y)
+        p = {name: t.clone().requires_grad_(True) for name, t in raw.items()}
+        value = objective(p)
+        names = [n for n in params.COVARIANT_FIELDS if n != 'raw_lengthscales']
+        results.append((value.double(), [g.double() for g in
+                                         torch.autograd.grad(value, [p[n] for n in names])]))
+    (value32, grads32), (value64, grads64) = results
+    bound = 10 * L * N * 1.1920929e-07 * (F.diagonal().max() / noise.diagonal().min() + 1)
+    assert abs(value32.item() - value64.item()) <= bound
+    for got, want in zip(grads32, grads64):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())

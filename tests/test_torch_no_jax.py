@@ -1,6 +1,7 @@
 """The port stands alone: a fresh process imports romcomma_tpu_torch, trains
-a small model through run.gpr and runs its GSA with standard errors through
-run.gsa on the CPU, without importing jax or romcomma_tpu."""
+small models through run.gpr (the variant and the covariant MOGP) and runs
+their GSA through run.gsa (the variant with standard errors) on the CPU,
+without importing jax or romcomma_tpu."""
 
 import subprocess
 import sys
@@ -25,6 +26,8 @@ with user.contexts.Environment('port'):
     user.run.gpr('gpr', repo, is_read=False, is_covariant=False, is_isotropic=True, maxiter=20)
     user.run.gsa('gpr', repo, is_covariant=False, is_isotropic=True, is_error_calculated=True,
                  is_T_partial=False)
+    user.run.gpr('gpr', repo, is_read=None, is_covariant=True, is_isotropic=False, maxiter=20)
+    user.run.gsa('gpr', repo, is_covariant=True, is_isotropic=False)
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
 """
     done = subprocess.run([sys.executable, '-c', script], capture_output=True, text=True,
@@ -35,3 +38,5 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
     for kind in ('first_order', 'closed', 'total'):
         assert (tmp_path / 'repo' / 'fold.0' / 'gpr.v.i' / 'gsa' / kind / 'T.csv').exists()
         assert (tmp_path / 'repo' / 'gpr.v.i' / 'gsa' / kind / 'W.csv').exists()
+        assert (tmp_path / 'repo' / 'fold.0' / 'gpr.c.a' / 'gsa' / kind / 'S.csv').exists()
+    assert (tmp_path / 'repo' / 'fold.0' / 'gpr.c.a' / 'test.csv').exists()
