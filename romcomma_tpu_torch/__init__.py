@@ -10,18 +10,22 @@ same CSV + meta.json tree:
   - ``ops``      ARD-RBF grams (plain torch, and the hand-written CUDA
                  unit-gram kernel in ``csrc/unit_gram.cu``), Cholesky and
                  triangular solves, scipy L-BFGS-B on a torch objective.
-  - ``models``   the variant multi-output GP: LML, calibration, prediction,
-                 posterior factors, and the persistent GPR/MOGP wrappers.
+  - ``models``   the variant and covariant multi-output GPs: LML,
+                 calibration, prediction, posterior factors, and the
+                 persistent GPR/MOGP wrappers.
+  - ``parallel`` the large-N variant route: a one-device DistributedGP.
   - ``gsa``      closed-form Sobol' indices with standard errors, in float64:
                  the calibrators, their factorized interval and error sweeps,
                  and the persistent Sobol models.
   - ``user``     run.gpr, run.gsa, sampling, test functions, results
                  collection.
 
-Not ported yet: covariant MOGP, the large-N route, the per-slice GSA error
-path, ROM and the multi-device engines.
+``north_star`` runs the N=20000, M=30 north-star workload on the card.
+
+Not ported yet: the fold-batched descent and GSA, the per-slice GSA error
+path, predict_gradient, ROM and the multi-device engines.
 """
 
-from romcomma_tpu_torch import base, data, ops, models, gsa, user  # noqa: F401
+from romcomma_tpu_torch import base, data, ops, models, gsa, parallel, user  # noqa: F401
 
 __version__ = '0.1.0'

@@ -32,17 +32,62 @@ from romcomma_tpu_torch.ops.gram import (rbf_gram, rbf_gram_covariant, rbf_gram_
 from romcomma_tpu_torch.ops.linalg import add_diag, cho_solve, cholesky, mvn_logpdf, tri_solve
 
 
-def _noisy_chol_single(x, lengthscales, variance, noise):
-    k = rbf_gram(x, x, lengthscales, variance)
-    return cholesky(add_diag(k, noise))
+class ExactLML(torch.autograd.Function):
+    """lml(ls, s2, noise) of one output's ARD-RBF GP, with the analytic
+    backward of romcomma_tpu's ``DistributedGP._build_lml`` custom VJP:
+
+        dLML/dK = Bbar = (alpha alpha^T - K^-1) / 2,
+        dLML/ds2 = sum(Bbar * Knn) / s2,    dLML/dnoise = tr(Bbar),
+        dLML/dls_m = sum_ab (Bbar * Knn)_ab (x_am - x_bm)^2 / ls_m^3,
+
+    with Knn the signal gram, the last from row and column sums and one
+    (N, N) @ (N, M) product, so no (N, N, M) tensor is built. The backward
+    forms K^-1 with ``cholesky_inverse`` and holds three (N, N) buffers: the
+    noisy gram, its factor and K^-1. Both variant routes evaluate their LML
+    here: ``lml_single`` (the small route) and ``DistributedGP.lml`` (the
+    large route).
+
+    Forward inputs: ls (M,) or broadcastable to it, s2 and noise scalars, x
+    (N, M), y (N,) or (N, 1), all of one dtype on one device. The value is
+    -inf where the factorization breaks down, so a minimizer of -lml backs
+    off, as romcomma_tpu's does."""
+
+    @staticmethod
+    def forward(ctx, ls, s2, noise, x, y):
+        N = x.shape[0]
+        K = rbf_gram(x, x, ls, s2)
+        K.diagonal().add_(noise)
+        chol = cholesky(K)
+        z = tri_solve(chol, y.reshape(N, 1))
+        value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
+                 - 0.5 * N * math.log(2.0 * math.pi))
+        value = torch.where(torch.isfinite(value), value, -torch.inf)
+        alpha = tri_solve(chol, z, trans=True)
+        ctx.save_for_backward(ls, s2, noise, x, K, chol, alpha)
+        return value
+
+    @staticmethod
+    def backward(ctx, gbar):
+        ls, s2, noise, x, K, chol, alpha = ctx.saved_tensors
+        W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])   # 2 Bbar
+        W_diagonal = W.diagonal().clone()
+        dnoise = 0.5 * torch.sum(W_diagonal)
+        W.mul_(K).diagonal().sub_(noise * W_diagonal)                            # 2 Bbar * Knn
+        ds2 = 0.5 * torch.sum(W) / s2
+        xx = x * x
+        term = xx.T @ torch.sum(W, dim=1) + xx.T @ torch.sum(W, dim=0) - 2.0 * torch.sum(
+            x * (W @ x), dim=0)
+        dls = (0.5 * term / torch.broadcast_to(ls, (x.shape[1],)) ** 3).sum_to_size(ls.shape)
+        return (gbar * dls, (gbar * ds2).reshape(s2.shape), (gbar * dnoise).reshape(noise.shape),
+                None, None)
 
 
 def lml_single(raw: VariantParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """LML of ONE output's GP. raw leaves are unbatched: raw_variance scalar,
-    raw_lengthscales (M,) or (1,), raw_noise scalar. y: (N,)."""
+    """LML of ONE output's GP through ExactLML. raw leaves are unbatched:
+    raw_variance scalar, raw_lengthscales (M,) or (1,), raw_noise scalar.
+    y: (N,). -inf where the factorization breaks down."""
     c = variant_constrain(raw)
-    chol = _noisy_chol_single(x, c['lengthscales'], c['variance'], c['noise'])
-    return torch.sum(mvn_logpdf(y[:, None], torch.zeros_like(y)[:, None], chol))
+    return ExactLML.apply(c['lengthscales'], c['variance'], c['noise'], x, y)
 
 
 def lml_variant(raw: VariantParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

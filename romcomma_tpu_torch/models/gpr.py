@@ -7,8 +7,9 @@ Counterpart of ``romcomma_tpu/models/gpr.py`` and of the reference's
 L independent scipy L-BFGS-B descents on a torch LML (models.gp) for the
 variant MOGP, one for the covariant MOGP.
 
-This port covers the variant MOGP below ``MOGP.LARGE_N_THRESHOLD`` rows, and
-the covariant MOGP at every L*N.
+At ``MOGP.LARGE_N_THRESHOLD`` rows and more, the variant MOGP trains through
+the large-N route, ``parallel.distributed.DistributedGP``, as romcomma_tpu's
+does; the covariant MOGP takes one descent at every L*N.
 """
 
 from __future__ import annotations
@@ -349,9 +350,9 @@ class MOGP(GPR):
 
     META: Dict[str, Any] = {'maxiter': 5000, 'gtol': 1e-16}
 
-    #: N at/above which variant calibration takes romcomma_tpu's blocked
-    #: distributed engine, not ported yet. Overridable per model via
-    #: meta['large_n_threshold'].
+    #: N at/above which variant calibration takes the large-N route,
+    #: parallel.distributed.DistributedGP (romcomma_tpu's threshold).
+    #: Overridable per model via meta['large_n_threshold'].
     LARGE_N_THRESHOLD: int = 10000
 
     def _calibration_options(self, **kwargs):
@@ -363,20 +364,26 @@ class MOGP(GPR):
         meta.pop('result', None)
         return meta, kernel_options, likelihood_options
 
-    def _finish_variant_calibration(self, c, iterations, meta, kernel_options,
-                                    likelihood_options) -> Dict[str, Any]:
-        """Write optimized variant parameters back to the CSV frames + meta.
+    def _finish_variant_calibration(self, c, lml, iterations, meta, kernel_options,
+                                    likelihood_options,
+                                    recompute_lml: bool = False) -> Dict[str, Any]:
+        """Write optimized variant parameters and the LML ``lml`` (L,) back
+        to the CSV frames + meta.
 
-        The persisted log-marginal is evaluated afresh from the *written* CSV
-        parameters, so disk state is exactly self-consistent: reloading the
-        model and recomputing its LML reproduces ``log_marginal.csv``."""
+        With ``recompute_lml`` the persisted log-marginal is evaluated afresh
+        from the *written* CSV parameters, so disk state is exactly
+        self-consistent: reloading the model and recomputing its LML
+        reproduces ``log_marginal.csv``. The large-N route keeps the
+        optimizer's own LML, as romcomma_tpu's does."""
         self._posterior_cache = None
         self._kernel.data.replace(variance=c['variance'][None, :],
                                   lengthscales=c['lengthscales'])
         self._likelihood.data.replace(variance=c['noise'][None, :])
-        with torch.no_grad():
-            lml = gp.lml_variant(self._variant_raw(), self._tensor(self._X),
-                                 self._tensor(self._Y)).cpu().numpy()
+        lml = np.asarray(lml, dtype=np.float64)
+        if recompute_lml:
+            with torch.no_grad():
+                lml = gp.lml_variant(self._variant_raw(), self._tensor(self._X),
+                                     self._tensor(self._Y)).cpu().numpy()
         self._likelihood.data.replace(log_marginal=lml[None, :])
         result = (f'Converged in {np.asarray(iterations).tolist()} L-BFGS iterations, '
                   f'lml={lml.tolist()}')
@@ -422,18 +429,72 @@ class MOGP(GPR):
         meta, kernel_options, likelihood_options = self._calibration_options(**kwargs)
         if self.is_covariant:
             return self._calibrate_covariant(meta, kernel_options, likelihood_options)
-        threshold = int(meta.get('large_n_threshold', self.LARGE_N_THRESHOLD))
-        if self._N >= threshold:
-            raise NotImplementedError(
-                f'N={self._N} >= {threshold}: the large-N variant route (DistributedGP) is not '
-                'ported to romcomma_tpu_torch yet; it waits for the large-N slice of the port')
+        maxiter, gtol = int(meta.get('maxiter', 5000)), float(meta.get('gtol', 1e-16))
         mask = variant_mask(kernel_variance=kernel_options['variance'],
                             lengthscales=kernel_options['lengthscales']['variant'],
                             noise=likelihood_options['variance'])
-        raw_opt, _, iterations = gp.calibrate_variant(
-            self._variant_raw(), mask, self._tensor(self._X), self._tensor(self._Y),
-            maxiter=int(meta.get('maxiter', 5000)), gtol=float(meta.get('gtol', 1e-16)))
-        with torch.no_grad():
-            c = {name: value.cpu().numpy() for name, value in variant_constrain(raw_opt).items()}
-        return self._finish_variant_calibration(c, iterations, meta, kernel_options,
-                                                likelihood_options)
+        large = self._N >= int(meta.get('large_n_threshold', self.LARGE_N_THRESHOLD))
+        if large:
+            c, lml, iterations = self._calibrate_variant_large(
+                maxiter, gtol, block=int(meta.get('distributed_block', 256)), mask=mask)
+        else:
+            raw_opt, lml, iterations = gp.calibrate_variant(
+                self._variant_raw(), mask, self._tensor(self._X), self._tensor(self._Y),
+                maxiter=maxiter, gtol=gtol)
+            with torch.no_grad():
+                c = {name: value.cpu().numpy()
+                     for name, value in variant_constrain(raw_opt).items()}
+        return self._finish_variant_calibration(c, lml, iterations, meta, kernel_options,
+                                                likelihood_options, recompute_lml=not large)
+
+    def _calibrate_variant_large(self, maxiter: int, gtol: float, block: int = 256,
+                                 mask: Optional[Dict[str, float]] = None):
+        """The large-N route (romcomma_tpu gpr.py:551-624): per-output or
+        joint descents through parallel.distributed.DistributedGP, from the
+        kernel's variance, its lengthscales broadcast to (L, M) and the
+        likelihood's variance. The joint descent runs when L > 1 and
+        ``fits_multi(L)``. A descent that ends on a non-finite LML in the
+        working dtype is rerun on a float64 engine with at most 4 line-search
+        steps per iteration; one still non-finite raises FloatingPointError.
+        ``mask`` (a variant_mask dict) freezes hyperparameter groups as the
+        small route does. Returns (constrained parameters, lml (L,),
+        iterations per output)."""
+        from romcomma_tpu_torch.parallel.distributed import DistributedGP
+        mask3 = ((mask['raw_lengthscales'], mask['raw_variance'], mask['raw_noise'])
+                 if mask is not None else (1.0, 1.0, 1.0))
+        dgp = DistributedGP(self._N, block=block)
+        variance = np.asarray(self._kernel.data.variance.np[0], dtype=FLOAT())
+        lengthscales = np.broadcast_to(np.asarray(self._kernel.data.lengthscales.np, dtype=FLOAT()),
+                                       (self._L, self._M))
+        noise = np.asarray(self._likelihood.data.variance.np[0], dtype=FLOAT())
+        joint = self._L > 1 and dgp.fits_multi(self._L)
+        if joint:
+            (ls_b, s2_b, noise_b), lml_b, iterations_b = dgp.calibrate_multi(
+                self._X, self._Y, lengthscales, variance, noise, maxiter=maxiter, gtol=gtol,
+                mask=mask3)
+        dgp64, results = None, []
+        for l in range(self._L):
+            start = (lengthscales[l], variance[l], noise[l])
+            result = (((ls_b[l], s2_b[l], noise_b[l]), lml_b[l], iterations_b) if joint else
+                      dgp.calibrate(self._X, self._Y[:, l:l + 1], *start, maxiter=maxiter,
+                                    gtol=gtol, mask=mask3))
+            if not np.isfinite(float(result[1])):
+                # Smooth RBF grams have exponentially decaying spectra: at this
+                # N the working dtype's rounding can swamp the small pivots
+                # whatever the start. Rerun the whole descent in float64.
+                if dgp64 is None:
+                    dgp64 = DistributedGP(self._N, block=block, dtype=np.float64)
+                result = dgp64.calibrate(
+                    self._X.astype(np.float64), self._Y[:, l:l + 1].astype(np.float64), *start,
+                    maxiter=maxiter, gtol=gtol, mask=mask3, max_linesearch_steps=4)
+            if not np.isfinite(float(result[1])):
+                raise FloatingPointError(
+                    f'Large-N calibration of output {l} produced a non-finite '
+                    f'LML (N={self._N}) even at float64.')
+            results.append(result)
+
+        def stacked(i: int) -> np.ndarray:
+            return np.stack([r[0][i].detach().to('cpu', torch.float64).numpy() for r in results])
+
+        c = {'lengthscales': stacked(0), 'variance': stacked(1), 'noise': stacked(2)}
+        return c, np.array([float(r[1]) for r in results]), [int(r[2]) for r in results]

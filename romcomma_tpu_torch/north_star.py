@@ -1,0 +1,123 @@
+"""The north-star run of the large-N variant route: an ARD-RBF GP of N=20000
+rows and M=30 inputs trained to convergence on one card, then its first-order
+and total Sobol' indices.
+
+Counterpart of ``benchmarks/north_star.py``: the same problem (seed 0,
+X ~ N(0, 1) of shape (N, M), Y = sin(x0) + x1^2 / 2 + 0.1 eps), the same calls
+(``DistributedGP.stage``, ``calibrate`` from ls=2, s2=1, noise=0.05,
+``sobol_indices`` of both kinds cold then warm, two timed value+grads) and the
+same JSON fields, plus the unit-gram launches of the descent (one per
+evaluation on the card, none on the CPU), the peak device memory and the
+card's name and power limit. It trains in float32, so every gram goes
+through the unit-gram kernel.
+
+    python -m romcomma_tpu_torch.north_star [N] [M] [maxiter]
+
+``maxiter`` defaults to 5000, the reference's cap, so the descent stops on
+scipy's own rule. The command needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from romcomma_tpu_torch.ops import gram_kernels
+from romcomma_tpu_torch.parallel.distributed import DistributedGP
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def _synchronize(on: torch.device):
+    if on.type == 'cuda':
+        torch.cuda.synchronize(on)
+
+
+def problem(N: int, M: int) -> Tuple[np.ndarray, np.ndarray]:
+    """benchmarks/north_star.py's data: the first-order indices concentrate
+    on inputs 0 and 1, and every other input is noise."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N, M))
+    Y = np.sin(X[:, :1]) + 0.5 * X[:, 1:2] ** 2 + 0.1 * rng.standard_normal((N, 1))
+    return X, Y
+
+
+def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda'
+        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the JSON record, the trained state: dgp, X, Y, x_dev, y_dev, ls, s2,
+    noise). ``on`` is 'cuda' (the card, required there) or 'cpu', where the
+    record's device numbers read None."""
+    on = torch.device(on)
+    if on.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('the north star is measured on a CUDA device, and there is none')
+    if on.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(on)
+    X, Y = problem(N, M)
+
+    t0 = time.perf_counter()
+    dgp = DistributedGP(N, mesh=on, dtype=np.float32)
+    x_dev, y_dev = dgp.stage(X, Y)
+    _synchronize(on)
+    t_stage = time.perf_counter() - t0
+
+    t0, launches = time.perf_counter(), gram_kernels.LAUNCHES
+    (ls, s2, noise), lml, iterations = dgp.calibrate(X, Y, ls0=np.full(M, 2.0), s2_0=1.0,
+                                                      noise0=0.05, maxiter=maxiter)
+    _synchronize(on)
+    t_train = time.perf_counter() - t0
+    train_launches = gram_kernels.LAUNCHES - launches
+
+    def gsa():
+        t0 = time.perf_counter()
+        S = dgp.sobol_indices(ls, s2, noise, x_dev, y_dev, X, kind=('first_order', 'total'))
+        _synchronize(on)
+        return S, time.perf_counter() - t0
+
+    S, t_gsa = gsa()
+    _, t_gsa_warm = gsa()
+    warm_phases = dict(dgp.last_gsa_timings)
+
+    def valgrad():
+        p = [t.clone().requires_grad_(True) for t in (ls, s2, noise)]
+        t0 = time.perf_counter()
+        torch.autograd.grad(dgp.lml(*p, x_dev, y_dev), p)
+        _synchronize(on)
+        return time.perf_counter() - t0
+
+    valgrad_s = min(valgrad() for _ in range(2))
+    out = {'N': N, 'M': M, 'valgrad_s': valgrad_s, 'iters': int(iterations),
+           'train_launches': train_launches,
+           'gsa_phases_warm': warm_phases, 'lml': float(lml), 'stage_s': t_stage,
+           'train_s': t_train, 'gsa_both_kinds_s': t_gsa, 'gsa_both_kinds_warm_s': t_gsa_warm,
+           'end_to_end_s': t_stage + t_train + t_gsa,
+           'S1_first3': [round(S['first_order'][m], 4) for m in range(min(3, M))],
+           'ST_first3': [round(S['total'][m], 4) for m in range(min(3, M))],
+           'peak_gib': (torch.cuda.max_memory_allocated(on) / 2 ** 30 if on.type == 'cuda'
+                        else None),
+           'device': torch.cuda.get_device_name(on) if on.type == 'cuda' else 'cpu',
+           'card': _card() if on.type == 'cuda' else None}
+    state = {'dgp': dgp, 'X': X, 'Y': Y, 'x_dev': x_dev, 'y_dev': y_dev, 'ls': ls, 's2': s2,
+             'noise': noise}
+    return out, state
+
+
+def main(N: int = 20000, M: int = 30, maxiter: int = 5000) -> Dict[str, Any]:
+    """Run the north star on the card and print its record as one JSON line."""
+    out, _ = run(N, M, maxiter)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == '__main__':
+    main(*[int(a) for a in sys.argv[1:]])

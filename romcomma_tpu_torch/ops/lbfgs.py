@@ -12,7 +12,7 @@ are scipy's:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,8 +34,8 @@ class MinimizeResult(NamedTuple):
 
 
 def minimize(fun: Callable[[Params], torch.Tensor], params: Params, maxiter: int = 5000,
-             gtol: float = 1e-16, ftol: float = SCIPY_FTOL,
-             memory_size: int = 30) -> MinimizeResult:
+             gtol: float = 1e-16, ftol: float = SCIPY_FTOL, memory_size: int = 30,
+             max_linesearch_steps: Optional[int] = None) -> MinimizeResult:
     """Minimize the scalar ``fun(params)`` over a dict of tensors.
 
     scipy works on one float64 vector; every evaluation unpacks it into
@@ -43,7 +43,10 @@ def minimize(fun: Callable[[Params], torch.Tensor], params: Params, maxiter: int
     stays float32. A non-finite evaluation is reported to scipy as 1e100 with
     a zero gradient, so its line search backs off. The returned value is a
     fresh evaluation at the returned params, so callers' isfinite checks
-    still see a breakdown there."""
+    still see a breakdown there.
+
+    ``max_linesearch_steps`` becomes scipy's ``maxls`` (None keeps scipy's
+    default of 20)."""
     names = list(params)
     templates = [params[name].detach() for name in names]
     sizes = [t.numel() for t in templates]
@@ -80,10 +83,11 @@ def minimize(fun: Callable[[Params], torch.Tensor], params: Params, maxiter: int
             return 1e100, np.zeros_like(g)
         return value, g
 
+    options = {'maxiter': maxiter, 'ftol': ftol, 'gtol': gtol, 'maxcor': memory_size}
+    if max_linesearch_steps:
+        options['maxls'] = int(max_linesearch_steps)
     x0 = np.concatenate([t.to('cpu', torch.float64).numpy().ravel() for t in templates])
-    res = sp_minimize(f, x0, jac=True, method='L-BFGS-B',
-                      options={'maxiter': maxiter, 'ftol': ftol, 'gtol': gtol,
-                               'maxcor': memory_size})
+    res = sp_minimize(f, x0, jac=True, method='L-BFGS-B', options=options)
     value, g = value_and_grad(res.x)
     grad_norm = float(np.max(np.abs(g))) if np.all(np.isfinite(g)) else np.inf
     converged = bool(res.success) and not (evaluations['first_nonfinite'] and res.nit == 0)

@@ -71,10 +71,12 @@ def test_backward_matches_plain(cuda, A, B, M):
         torch.testing.assert_close(got, want, rtol=0.0, atol=GRAD_RTOL * scale)
 
 
-@pytest.mark.parametrize('A, M', [(150, 7), (1000, 70), (4096, 30), (8192, 30)])
+@pytest.mark.parametrize('A, M', [(150, 7), (1000, 70), (4096, 30), (8192, 30), (10240, 30),
+                                  (20000, 30)])
 def test_one_operand(cuda, A, M):
     """A training gram hands the kernel one tensor (u is v): it is packed once,
-    the diagonal is exactly 1, and autograd sums both input gradients."""
+    the diagonal is exactly 1, and autograd sums both input gradients. 10240
+    and 20000 rows are the large route's shapes (ragged: masked stores)."""
     u, _ = _inputs(A, 1, M, cuda, seed=4)
     before = gram_kernels.LAUNCHES
     got = gram_kernels.unit_gram_cuda(u, u)
@@ -209,5 +211,78 @@ def test_host_route_value_and_grad_matches_float64_plain(cuda):
     (value32, grads32), (value64, grads64) = results
     bound = 10 * L * N * 1.1920929e-07 * (F.diagonal().max() / noise.diagonal().min() + 1)
     assert abs(value32.item() - value64.item()) <= bound
+    for got, want in zip(grads32, grads64):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())
+
+
+def _distributed_tables(X, Y, Xs, hypers, on):
+    """DistributedGP's float64 LML, gradient, posterior alpha, predictions at
+    Xs, and first-order and total S and T (non-partial), from the same
+    inputs on `on`, on the host."""
+    import numpy as np
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    dgp = DistributedGP(len(X), mesh=on, dtype=np.float64)
+    x, y = dgp.stage(X, Y)
+    p = [torch.tensor(h, dtype=torch.float64, device=on, requires_grad=True) for h in hypers]
+    value = dgp.lml(*p, x, y)
+    tables = {'lml': value, 'grad': torch.cat([g.reshape(-1) for g in
+                                               torch.autograd.grad(value, p)])}
+    tables['alpha'] = dgp.posterior_alpha(*hypers, x, y)[0]
+    tables['mean'], tables['var'] = dgp.predict(*hypers, x, y, Xs)
+    indices = dgp.sobol_indices(*hypers, x, y, X, kind=('first_order', 'total'), error=True,
+                                is_T_partial=False)
+    tables = {key: value.detach().cpu().numpy() for key, value in tables.items()}
+    for key in ('S', 'T'):
+        tables[key] = np.array([[by_m[m] for m in sorted(by_m)]
+                                for by_m in indices[key].values()])
+    return tables
+
+
+def test_distributed_gp_matches_cpu(cuda):
+    """DistributedGP at N=1024, M=10 in float64 on the card against the CPU,
+    from the same inputs: every table within 1e-8 of its largest entry (two
+    float64 Choleskys of a K of cond ~1e5 differ by ~cond eps64), and T
+    squared, the root of a cancelling quadform, within 10 times the CPU's
+    largest response to one-ulp moves of the hyperparameters."""
+    import numpy as np
+    from romcomma_tpu_torch import north_star
+    X, Y = north_star.problem(1024, 10)
+    rng = np.random.default_rng(11)
+    Xs, hypers = rng.standard_normal((64, 10)), (rng.uniform(1.5, 4.0, 10), 1.0, 0.01)
+    card, cpu = (_distributed_tables(X, Y, Xs, hypers, on) for on in (cuda, 'cpu'))
+
+    def distance(key, got, want):
+        got, want = (got * got, want * want) if key == 'T' else (got, want)
+        return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+    spread = max(distance('T', _distributed_tables(X, Y, Xs, tuple(
+        np.nextafter(h, np.where(np.random.default_rng(draw).random(np.shape(h)) < 0.5,
+                                 -np.inf, np.inf)) for h in hypers), 'cpu')['T'], cpu['T'])
+        for draw in range(3))
+    for key, want in cpu.items():
+        assert np.isfinite(card[key]).all(), key
+        assert distance(key, card[key], want) <= (10 * spread if key == 'T' else 1e-8), key
+
+
+def test_distributed_gp_float32_lml_through_the_kernel(cuda):
+    """ExactLML in float32 (one unit-gram launch per value) against float64
+    at N=2048, M=30: the value within the first-order bound of a float32
+    LML, 10 N eps32 (s2 / noise + 1); the gradient within 1e-2 of its largest
+    entry, about cond(K) eps32 here (cond(K) ~ N s2 / noise ~ 2e4)."""
+    import numpy as np
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    from romcomma_tpu_torch import north_star
+    X, Y = north_star.problem(2048, 30)
+    hypers, results = (np.full(30, 3.0), 1.0, 0.1), []
+    for dtype in (np.float32, np.float64):
+        dgp = DistributedGP(2048, mesh=cuda, dtype=dtype)
+        x, y = dgp.stage(X, Y)
+        p = [torch.tensor(h, dtype=x.dtype, device=cuda, requires_grad=True) for h in hypers]
+        before = gram_kernels.LAUNCHES
+        value = dgp.lml(*p, x, y)
+        assert gram_kernels.LAUNCHES == before + (dtype == np.float32)
+        results.append((value.double(), [g.double() for g in torch.autograd.grad(value, p)]))
+    (value32, grads32), (value64, grads64) = results
+    assert abs(value32.item() - value64.item()) <= 10 * 2048 * 1.1920929e-07 * (1.0 / 0.1 + 1)
     for got, want in zip(grads32, grads64):
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())

@@ -1,7 +1,8 @@
 """The port stands alone: a fresh process imports romcomma_tpu_torch, trains
-small models through run.gpr (the variant and the covariant MOGP) and runs
-their GSA through run.gsa (the variant with standard errors) on the CPU,
-without importing jax or romcomma_tpu."""
+small models through run.gpr (the variant and the covariant MOGP, and the
+variant again through the large-N route, DistributedGP) and runs their GSA
+through run.gsa (the variant with standard errors) on the CPU, without
+importing jax or romcomma_tpu."""
 
 import subprocess
 import sys
@@ -28,6 +29,9 @@ with user.contexts.Environment('port'):
                  is_T_partial=False)
     user.run.gpr('gpr', repo, is_read=None, is_covariant=True, is_isotropic=False, maxiter=20)
     user.run.gsa('gpr', repo, is_covariant=True, is_isotropic=False)
+    user.run.gpr('large', repo, is_read=False, is_covariant=False, is_isotropic=False, maxiter=20,
+                 large_n_threshold=1)
+assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
 """
     done = subprocess.run([sys.executable, '-c', script], capture_output=True, text=True,
@@ -40,3 +44,5 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
         assert (tmp_path / 'repo' / 'gpr.v.i' / 'gsa' / kind / 'W.csv').exists()
         assert (tmp_path / 'repo' / 'fold.0' / 'gpr.c.a' / 'gsa' / kind / 'S.csv').exists()
     assert (tmp_path / 'repo' / 'fold.0' / 'gpr.c.a' / 'test.csv').exists()
+    for k in (0, 1):
+        assert (tmp_path / 'repo' / f'fold.{k}' / 'large.v.a' / 'test.csv').exists()
