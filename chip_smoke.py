@@ -11,8 +11,9 @@ Phases (each prints its result and its time; none catches its own failure):
   3. the kernel against its plain version, forward and backward, at the main
      path's shapes (u is v; the covariant path's stacked (L*N)^2 ones too) and
      at ragged and two-operand ones, and the covariant gram's one launch over
-     stacked operands; then both versions' times at the main path's shapes
-     (CUDA events, 50 samples of 10 back-to-back calls each after warm-up),
+     stacked operands; then both versions' times at the main paths' shapes
+     (phase 9's (8192^2, 10) among them; CUDA events, 50 samples of 10
+     back-to-back calls each after warm-up),
      the kernels' device time (torch.profiler), the bound, and the wrapper's
      host time per call; and the forward's times at the covariant shapes;
   4. the main path at full size through the user entry points:
@@ -60,12 +61,24 @@ Phases (each prints its result and its time; none catches its own failure):
         value+grad at N=10240 timed;
      c. at N=1024, M=10, float64, the card's DistributedGP against the CPU's
         from the same inputs: LML, gradient, posterior alpha, predictions
-        and the indices of two kinds with standard errors.
+        and the indices of two kinds with standard errors;
+  9. ROM (romcomma_tpu_torch.rom_scale, the port of benchmarks/rom_scale.py:
+     N=8192, M=10, a planted plane, float32 calibrations through the kernel):
+     a. the 'sobol' rotation for 3 iterations: the planted plane within 5
+        degrees of rotation.csv's leading two rows, the final S[0:2] >= 0.98,
+        rotation.csv orthonormal with det +1, meta.json's history; each
+        stage's seconds, the S_rotated value+grad count and time, peak memory;
+     b. the 'active_subspace' rotation for 2 iterations, the same angle rule,
+        and predict_gradient's time per 256-point batch;
+     c. at N=512, M=6, L=3, float64, the card against the CPU from identical
+        inputs: predict_gradient (variant, and covariant with F
+        non-diagonal), V_rotated at a random orthonormal P, the gradient of
+        optimize_theta's objective in the Cayley parameters, and _cayley.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
-of phase 4 and of phase 7, the north star and run.gpr of phase 8, each counted
-from 0 just before it runs. Exits non-zero, printing no result, where there is
+of phase 4 and of phase 7, the north star and run.gpr of phase 8 and the two
+ROMs of phase 9, each counted from 0 just before it runs. Exits non-zero, printing no result, where there is
 no CUDA device or no checkout around the script.
 """
 
@@ -89,10 +102,13 @@ N, M, K, MAXITER = 8192, 30, 2, 50
 #: (A, B, M, u is v). The training grams of the main path have u is v.
 KERNEL_SHAPES = [(37, 61, 5, False), (4097, 4095, 30, False), (4096, 4096, 30, False),
                  (4096, 4096, 30, True), (8192, 8192, 30, True), (12288, 12288, 30, True),
-                 (24576, 24576, 30, True), (20000, 20000, 30, True), (10240, 10240, 30, True)]
+                 (24576, 24576, 30, True), (20000, 20000, 30, True), (10240, 10240, 30, True),
+                 (8192, 8192, 10, True)]
 #: The large route's shapes (20000 and 10240 rows: ragged, masked stores) take
-#: fewer timing samples than the small route's.
-TIMED_SHAPES = [(4096, 4096, 30), (8192, 8192, 30), (20000, 20000, 30), (10240, 10240, 30)]
+#: fewer timing samples than the small route's. (8192, 8192, 10) is phase 9's
+#: ROM calibrations'.
+TIMED_SHAPES = [(4096, 4096, 30), (8192, 8192, 30), (20000, 20000, 30), (10240, 10240, 30),
+                (8192, 8192, 10)]
 #: The covariant path's unit grams, (L*N)^2 over one stacked operand (u is v),
 #: timed forward only, with fewer samples: a plain call at 24576^2 takes ~10 ms.
 COVARIANT_TIMED_SHAPES = [(12288, 12288, 30), (24576, 24576, 30)]
@@ -1531,6 +1547,160 @@ def distributed_card_against_cpu(torch):
     require(not failures, failures)
 
 
+#: Phase 9a/9b: romcomma_tpu_torch.rom_scale's repository (benchmarks/rom_scale.py's
+#: N=8192, M=10 planted plane), float32 training, its ROM 'sobol' for 3 iterations
+#: and 'active_subspace' for 2.
+ROM_N, ROM_M, ROM_SOBOL_ITERATIONS, ROM_ACTIVE_ITERATIONS = 8192, 10, 3, 2
+#: The largest principal angle between the planted plane and the learned leading
+#: two rows of rotation.csv, and the least final leading index S[0:2]: the noise
+#: (0.05^2 of a unit output variance) is outside the posterior mean that S reads.
+ROM_ANGLE_DEG, ROM_S_M_MIN = 5.0, 0.98
+#: Phase 9c: the card against the CPU on identical float64 inputs.
+ROM_CARD_CPU_N, ROM_CARD_CPU_M, ROM_CARD_CPU_L = 512, 6, 3
+ROM_CARD_CPU_TOL = 1e-10
+
+
+def rom_run(torch, gram_kernels, iterations, method):
+    """One rom_scale run on the card, its unit-gram launches counted from 0,
+    checked: the planted plane recovered, rotation.csv orthonormal with det
+    +1, meta.json's history persisted. Returns (record, launches)."""
+    from romcomma_tpu_torch import rom_scale
+    torch.cuda.synchronize()
+    gram_kernels.LAUNCHES = 0
+    out, state = rom_scale.run(ROM_N, ROM_M, iterations, method,
+                               root=ROOT / 'build' / f'chip_smoke_rom_{method}')
+    launches = gram_kernels.LAUNCHES
+    print(json.dumps(out), flush=True)
+    history = json.loads((state['rom'].folder / 'meta.json').read_text())['history']
+    print(f'ROM {method}: {out["iterations_run"]} iterations in {out["rom_s"]:.2f} s '
+          f'(stages, s: {json.dumps(out["stage_seconds"])}); S[0:2] history '
+          f'{out["S_m_history"]}; principal angles to the planted plane '
+          f'{out["principal_angles_deg"]} deg (limit {ROM_ANGLE_DEG}); rotation.csv '
+          f'|R R^T - I| {out["rotation_orthonormality"]:.2e}, det {out["rotation_det"]:.12f}; '
+          f'S_rotated value+grad {out["S_rotated_evaluations"]} in the descents at '
+          f'{out["S_rotated_ms_in_descent"]} ms each (scipy included), alone '
+          f'{out["S_rotated_valgrad_ms"]:.3f} ms; predict_gradient of 256 points '
+          f'{out["predict_gradient_256_ms"]:.3f} ms; one {out["dtype"]} LML value+grad '
+          f'{out["lml_valgrad_ms"]:.3f} ms; unit-gram launches {launches}; peak device '
+          f'memory {out["peak_gib"]:.2f} GiB', flush=True)
+    require(launches > 0, f'ROM {method} never launched the unit-gram kernel')
+    require(out['dtype'] == 'float32', out['dtype'])
+    require(max(out['principal_angles_deg']) <= ROM_ANGLE_DEG, out['principal_angles_deg'])
+    require(out['rotation_orthonormality'] <= 1e-8 and abs(out['rotation_det'] - 1) <= 1e-8,
+            (out['rotation_orthonormality'], out['rotation_det']))
+    require(len(history) > 0 and history == state['meta']['history'], history)
+    return out, launches
+
+
+def rom_tables(torch, tree, raws, on, P, A):
+    """From the models in `tree` with the float64 raw parameters `raws`, on
+    `on`: predict_gradient's mean and covariance of the variant and the
+    covariant model (F non-diagonal) at 64 points, V_rotated(P) of the
+    variant model, the gradient in the Cayley parameters A of
+    optimize_theta's objective (Mu = 2), and _cayley(A). On the host."""
+    import numpy as np
+    from romcomma_tpu_torch.base.definitions import pinned_device
+    from romcomma_tpu_torch.data.storage import Fold, Repository
+    from romcomma_tpu_torch.gsa.calibrators import ClosedSobolWithRotation
+    from romcomma_tpu_torch.models.gpr import MOGP
+    on = torch.device(on)
+    xs = np.random.default_rng(SEED).standard_normal((64, ROM_CARD_CPU_M))
+    tables = {}
+    with pinned_device(on):
+        fold = Fold(Repository(tree), 0)
+        for name, covariant in (('gpr.v.a', False), ('gpr.c.a', True)):
+            gp = MOGP(name, fold, True, covariant, False)
+            # The raw parameters come from the caller in float64: made on each
+            # device in float32 they can round one ulp apart (PERF.md section 7).
+            gp._raw = lambda raw=raws[name]: {k: v.to(on) for k, v in raw.items()}
+            kind = 'covariant' if covariant else 'variant'
+            tables[f'{kind} gradient mean'], tables[f'{kind} gradient covariance'] = (
+                gp.predict_gradient(xs))
+            if not covariant:
+                cal = ClosedSobolWithRotation(gp)
+                tables['V_rotated'] = cal.V_rotated(torch.as_tensor(P, device=on))
+                a = torch.tensor(A, device=on, requires_grad=True)
+                value = -torch.mean(torch.diagonal(cal.S_rotated(cal._cayley(a, ROM_CARD_CPU_M)[:2])))
+                tables['d objective / d A'] = torch.autograd.grad(value, a)[0]
+                tables['_cayley'] = cal._cayley(torch.as_tensor(A, device=on), ROM_CARD_CPU_M)
+    return {key: value.detach().cpu().numpy() if torch.is_tensor(value) else value
+            for key, value in tables.items()}
+
+
+def rom_card_against_cpu(torch):
+    """Phase 9c: at N=ROM_CARD_CPU_N, M=ROM_CARD_CPU_M, L=ROM_CARD_CPU_L, the
+    card's rom_tables against the CPU's from identical float64 inputs, each
+    within ROM_CARD_CPU_TOL of its largest entry or, where it is not, within
+    ULP_SPREADS of the CPU's largest response to one-ulp moves of the raw
+    parameters (phase 6's rule)."""
+    import numpy as np
+    import pandas as pd
+    from romcomma_tpu_torch.base.definitions import pinned_device
+    from romcomma_tpu_torch.data.storage import Fold, Repository
+    from romcomma_tpu_torch.models.gpr import MOGP
+    N_, M_, L_ = ROM_CARD_CPU_N, ROM_CARD_CPU_M, ROM_CARD_CPU_L
+    root = ROOT / 'build' / 'chip_smoke_rom_card_cpu'
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+    X = rng.uniform(size=(N_, M_))
+    z = X - 0.5
+    Y = np.stack([np.sin(3 * z[:, 0] + z[:, 1]), z[:, 2] ** 2 - z[:, 3], z @ rng.normal(size=M_)],
+                 axis=1) + 0.05 * rng.standard_normal((N_, L_))
+    columns = pd.MultiIndex.from_tuples([('X', f'X.{i}') for i in range(M_)]
+                                        + [('Y', f'Y.{l}') for l in range(L_)])
+    tree = root / 'repo'
+    with pinned_device(torch.device('cpu')):
+        fold = Fold(Repository.from_df(tree, pd.DataFrame(np.column_stack([X, Y]),
+                                                          columns=columns)).into_K_folds(-1), 0)
+        G = rng.normal(size=(L_, L_))
+        F = 0.3 * G @ G.T + np.diag(rng.uniform(0.5, 1.5, L_))
+        for name, covariant, variance, noise in (
+                ('gpr.v.a', False, rng.uniform(0.7, 1.3, (1, L_)), np.array([[0.02, 0.03, 0.05]])),
+                ('gpr.c.a', True, F, np.diag([0.02, 0.03, 0.05]))):
+            gp = MOGP(name, fold, False, covariant, False)
+            gp.kernel.data.replace(variance=variance, lengthscales=rng.uniform(0.8, 2.5, (L_, M_)))
+            gp.likelihood.data.replace(variance=noise)
+        raws = {name: {k: v.double() for k, v in MOGP(name, fold, True, name == 'gpr.c.a',
+                                                        False)._raw().items()}
+                for name in ('gpr.v.a', 'gpr.c.a')}
+    Q, _ = np.linalg.qr(rng.standard_normal((M_, M_)))
+    P, A = Q[:2], rng.normal(scale=0.5, size=M_ * (M_ - 1) // 2)
+    t0 = time.perf_counter()
+    card = rom_tables(torch, tree, raws, CARD, P, A)
+    cpu = rom_tables(torch, tree, raws, 'cpu', P, A)
+
+    def nudged(draw):
+        g = np.random.default_rng(1000 + draw)
+        return {name: {k: torch.from_numpy(np.nextafter(v.numpy(), np.where(
+            g.random(tuple(v.shape)) < 0.5, -np.inf, np.inf))) for k, v in raw.items()}
+            for name, raw in raws.items()}
+
+    moved = None
+
+    def distance(got, want):
+        return float(np.abs(got - want).max()) / (float(np.abs(want).max()) or 1.0)
+
+    readings, failures = [], []
+    for key, want in cpu.items():
+        require(bool(np.isfinite(card[key]).all()), f'{key} is not finite on the card')
+        apart = distance(card[key], want)
+        if apart <= ROM_CARD_CPU_TOL:
+            readings.append(f'{key} {apart:.2e}')
+            continue
+        if moved is None:
+            moved = [rom_tables(torch, tree, nudged(d), 'cpu', P, A) for d in range(ULP_DRAWS)]
+        ulps = max(distance(m[key], want) for m in moved)
+        ratio = apart / ulps if ulps else (math.inf if apart else 0.0)
+        readings.append(f'{key} {apart:.2e} = {ratio:.3f} spreads of {ulps:.2e}')
+        if ratio > ULP_SPREADS:
+            failures.append((key, apart, ulps))
+    print(f'N={N_} M={M_} L={L_}, float64, card against the CPU in '
+          f'{time.perf_counter() - t0:.2f} s; worst |card - CPU| / max |CPU| (limit '
+          f'{ROM_CARD_CPU_TOL}, else {ULP_SPREADS} spreads of one-ulp moves of the raw '
+          f'parameters): ' + ', '.join(readings), flush=True)
+    require(not failures, failures)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1593,13 +1763,25 @@ def main() -> int:
           f'worst LML error / bound {large_worst:.3e}; worst ExactLML error / limit '
           f'{exact_worst:.3e}', flush=True)
 
+    t = phase(f'9. ROM: the N={ROM_N} M={ROM_M} planted plane, \'sobol\' for '
+              f'{ROM_SOBOL_ITERATIONS} iterations and \'active_subspace\' for '
+              f'{ROM_ACTIVE_ITERATIONS}, float32; the card against the CPU')
+    sobol, sobol_launches = rom_run(torch, gram_kernels, ROM_SOBOL_ITERATIONS, 'sobol')
+    require(sobol['S_m_history'][-1] >= ROM_S_M_MIN, (sobol['S_m_history'], ROM_S_M_MIN))
+    active, active_launches = rom_run(torch, gram_kernels, ROM_ACTIVE_ITERATIONS,
+                                      'active_subspace')
+    rom_card_against_cpu(torch)
+    print(f'phase 9: {time.perf_counter() - t:.2f} s (ROM sobol {sobol["rom_s"]:.2f} s, '
+          f'active_subspace {active["rom_s"]:.2f} s)', flush=True)
+
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'unit_gram', 'route': 'cuda',
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
-        'launches': launches + covariant_launches + north_star_launches + large_launches,
+        'launches': (launches + covariant_launches + north_star_launches + large_launches
+                     + sobol_launches + active_launches),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}]}))

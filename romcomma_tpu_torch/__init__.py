@@ -15,17 +15,22 @@ same CSV + meta.json tree:
                  persistent GPR/MOGP wrappers.
   - ``parallel`` the large-N variant route: a one-device DistributedGP.
   - ``gsa``      closed-form Sobol' indices with standard errors, in float64:
-                 the calibrators, their factorized interval and error sweeps,
-                 and the persistent Sobol models.
-  - ``user``     run.gpr, run.gsa, sampling, test functions, results
-                 collection.
+                 the calibrators (the rotated-basis one included), their
+                 factorized interval and error sweeps, and the persistent
+                 Sobol models.
+  - ``rom``      Reduced Order Modelling: the alternating input-basis
+                 rotation loop (active subspace or leading Sobol' index).
+  - ``user``     run.gpr, run.gsa, run.rom, sampling, test functions,
+                 results collection.
 
-``north_star`` runs the N=20000, M=30 north-star workload on the card.
+``north_star`` runs the N=20000, M=30 north-star workload on the card, and
+``rom_scale`` the N=8192, M=10 planted-subspace ROM.
 
 Not ported yet: the fold-batched descent and GSA, the per-slice GSA error
-path, predict_gradient, ROM and the multi-device engines.
+path, models/likelihoods.py and Kernel.TypeFromParameters, the rest of user/
+and the multi-device engines.
 """
 
-from romcomma_tpu_torch import base, data, ops, models, gsa, parallel, user  # noqa: F401
+from romcomma_tpu_torch import base, data, ops, models, gsa, parallel, rom, user  # noqa: F401
 
 __version__ = '0.1.0'

@@ -59,19 +59,28 @@ def TORCH_FLOAT() -> torch.dtype:
 _PINNED: Optional[torch.device] = None
 
 
+#: What device() says where there is no CUDA device and none was pinned.
+NO_CUDA_DEVICE = ('romcomma_tpu_torch computes on a CUDA device, and there is none. Ask for the '
+                  "CPU explicitly: user.contexts.Environment(device='CPU'), or "
+                  "base.definitions.pinned_device(torch.device('cpu')).")
+
+
 def device() -> torch.device:
     """The compute device: the one pinned by ``pinned_device`` (as
-    ``user.contexts.Environment`` does), else the current CUDA device when
-    there is one, else the CPU."""
+    ``user.contexts.Environment`` does), else the current CUDA device. Where
+    there is no CUDA device and nothing was pinned it raises RuntimeError: the
+    port never moves to the CPU unless asked to."""
     if _PINNED is not None:
         return _PINNED
-    return torch.device('cuda') if torch.cuda.is_available() else torch.device('cpu')
+    if not torch.cuda.is_available():
+        raise RuntimeError(NO_CUDA_DEVICE)
+    return torch.device('cuda')
 
 
 @contextmanager
-def pinned_device(pinned: torch.device):
-    """Make ``device()`` return `pinned` for the body, then restore the
-    previous choice."""
+def pinned_device(pinned: Optional[torch.device]):
+    """Make ``device()`` return `pinned` for the body (None: the CUDA device,
+    as if nothing were pinned), then restore the previous choice."""
     global _PINNED
     previous, _PINNED = _PINNED, pinned
     try:

@@ -428,5 +428,11 @@ class Normalization:
         _, _, _, Y_std = self._relevant_stats
         return dfY.copy(deep=True).mul(Y_std.values, axis=1)
 
+    def X_gradient(self, X: np.ndarray, m):
+        """d(unnormalized X[m]) / d(normalized Z[m]) (storage.py:515-524)."""
+        X_rng = self._relevant_stats[1].values[m]
+        return (X_rng * scipy.stats.norm.pdf(X[..., m], loc=0, scale=1)
+                if self._is_applicable else np.ones_like(X[..., m]))
+
     def __repr__(self) -> str:
         return str(self.csv)

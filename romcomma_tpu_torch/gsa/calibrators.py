@@ -583,6 +583,135 @@ class ClosedSobolWithError(ClosedSobol):
         return self._full_error()['T']
 
 
+class ClosedSobolWithRotation(ClosedSobol):
+    """Closed Sobol' indices under an input-basis rotation u = Theta x: the
+    ROM hook (reference calibrators.py:405-423; romcomma_tpu calibrators.py:
+    1528-1683).
+
+    With orthonormal rows P = Theta[:Mu] and x ~ N(0, I), the rotated closed
+    index V[u_{1:Mu}] = Cov_u(E[f_l | Px], E[f_j | Px]) closes over the RBF
+    posterior mean: conditioning gives x | Px=u ~ N(P^T u, Sigma_c), Sigma_c =
+    I - P^T P; with B_l = (Lambda_l^2 + Sigma_c)^-1 and C_lj = P^T (P (B_l +
+    B_j) P^T + I)^-1 P,
+
+        E_u[g^l_n g^j_n'] ~ exp(-q_l(x_n)/2 - q_j(x_n')/2 + x_n^T B_l C_lj B_j x_n'),
+
+    so all N^2 pair integrals of an output pair are one (N, M+2) @ (M+2, N)
+    matmul and an elementwise exp, differentiable in Theta through autograd.
+    :meth:`optimize_theta` ascends the mean leading index over SO(M) through
+    a Cayley parameterization.
+
+    V and S only: the ROM persists Theta into the fold and retrains, after
+    which :class:`ClosedSobolWithError` gives standard errors in the rotated
+    basis as in any other (``ROM.calibrate(is_error_calculated=True)``)."""
+
+    def V_rotated(self, P: torch.Tensor) -> torch.Tensor:
+        """The (L, L) conditional-variance matrix of the rotated slice
+        u_{1:Mu} = P x (P: (Mu, M), orthonormal rows), float64 and
+        differentiable in P. At P = I[:Mu] it equals ``marginalize((0, Mu))['V']``:
+        the centred ``g0KY`` weights contracted through the Gaussian pdf ratio
+        H = E_u[g^l_n g^j_n'] / (g0_ln g0_jn'), in full-matrix algebra."""
+        if not self.is_F_diagonal:
+            raise NotImplementedError('Rotated Sobol indices require a diagonal kernel '
+                                      'covariance F.')
+        X = self.X                                              # (N, M)
+        P = P.to(X)
+        Lam2 = self.Lambda ** 2                                 # (L, M)
+        g = self.g0KY[:, 0, :]                                  # (L, N) centred
+        L, M, Mu = self.L, self.M, P.shape[0]
+        I_M = torch.eye(M, dtype=X.dtype, device=X.device)
+        I_Mu = torch.eye(Mu, dtype=X.dtype, device=X.device)
+        ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
+        Sig_c = I_M - P.T @ P
+        B, logc1, lc0, q0 = [], [], [], []
+        for l in range(L):
+            cho = torch.linalg.cholesky(torch.diag(Lam2[l]) + Sig_c)
+            B.append(torch.cholesky_inverse(cho))
+            logc1.append(0.5 * torch.sum(torch.log(Lam2[l]))
+                         - torch.sum(torch.log(torch.diagonal(cho))))
+            # The g0 divisor's log-constant and per-point exponent (the
+            # unconditional integral, Sigma_c -> I).
+            lc0.append(0.5 * torch.sum(torch.log(Lam2[l] / (Lam2[l] + 1.0))))
+            q0.append(torch.sum(X * X / (Lam2[l] + 1.0), dim=-1))          # (N,)
+        rows = []
+        for l in range(L):
+            cols = []
+            for j in range(L):
+                cho_m = torch.linalg.cholesky(P @ (B[l] + B[j]) @ P.T + I_Mu)
+                C = P.T @ torch.cholesky_inverse(cho_m) @ P               # (M, M)
+                q_l = torch.sum((X @ (B[l] - B[l] @ C @ B[l])) * X, dim=-1)
+                q_j = torch.sum((X @ (B[j] - B[j] @ C @ B[j])) * X, dim=-1)
+                constant = (logc1[l] + logc1[j] - lc0[l] - lc0[j]
+                            - torch.sum(torch.log(torch.diagonal(cho_m))))
+                # log H = X B_l C B_j X^T + a_n + b_n', the per-point terms
+                # riding the same matmul as two extra columns.
+                a = -0.5 * (q_l - q0[l]) + constant
+                b = -0.5 * (q_j - q0[j])
+                left = torch.cat([X @ (B[l] @ C @ B[j]), a[:, None], ones], dim=1)
+                right = torch.cat([X, ones, b[:, None]], dim=1)
+                cols.append(g[l] @ torch.exp(left @ right.T) @ g[j])
+            rows.append(torch.stack(cols))
+        return torch.stack(rows)
+
+    def S_rotated(self, P: torch.Tensor) -> torch.Tensor:
+        """Closed Sobol' index matrix of the rotated slice, normalized by the
+        total variance as :meth:`ClosedSobol.marginalize` is."""
+        return self.V_rotated(P) / self.V[2]
+
+    @staticmethod
+    def _cayley(A_flat: torch.Tensor, M: int) -> torch.Tensor:
+        """Theta in SO(M) from M(M-1)/2 free parameters by the Cayley
+        transform Theta = (I + A)^-1 (I - A), A skew-symmetric: one native
+        float64 solve."""
+        idx = torch.tril_indices(M, M, -1, device=A_flat.device)
+        A = torch.zeros((M, M), dtype=A_flat.dtype, device=A_flat.device).index_put(
+            (idx[0], idx[1]), A_flat)
+        A = A - A.T
+        I = torch.eye(M, dtype=A_flat.dtype, device=A_flat.device)
+        return torch.linalg.solve(I + A, I - A)
+
+    def optimize_theta(self, Mu: int, maxiter: int = 200, n_starts: int = 4, seed: int = 0,
+                       scale: float = 0.5) -> Tuple[np.ndarray, float]:
+        """Ascend the mean (over outputs) leading closed index S[u_{1:Mu}] over
+        Theta in SO(M), from the identity and n_starts - 1 random Cayley
+        generators, each by scipy's L-BFGS-B (romcomma_tpu runs optax's L-BFGS
+        here, so the two may stop at different points). Returns (Theta (M, M),
+        best S). Records the objective's value+grad count and seconds in
+        ``last_theta_timings``."""
+        from romcomma_tpu_torch.ops import lbfgs
+        M = self.M
+        n_free = (M * (M - 1)) // 2
+        evaluations = [0]
+
+        def objective(p):
+            evaluations[0] += 1
+            P = self._cayley(p['A'], M)[:Mu]
+            return -torch.mean(torch.diagonal(self.S_rotated(P)))
+
+        rng = np.random.default_rng(seed)
+        starts = [np.zeros(n_free)]
+        starts += [rng.normal(scale=scale, size=n_free) for _ in range(max(0, n_starts - 1))]
+        best = None
+        t0 = time.perf_counter()
+        for x0 in starts:
+            res = lbfgs.minimize(objective, {'A': torch.as_tensor(x0, dtype=self.X.dtype,
+                                                                  device=self.X.device)},
+                                 maxiter=maxiter)
+            if best is None or res.value < best.value:
+                best = res
+        self.last_theta_timings = {'evaluations': evaluations[0],
+                                   'seconds': time.perf_counter() - t0}
+        with torch.no_grad():
+            theta = self._cayley(best.params['A'], M).cpu().numpy()
+        # Deterministic signs (each row's largest-magnitude entry positive) keep
+        # the persisted rotation reproducible; row sign flips leave S invariant.
+        signs = np.sign(theta[np.arange(M), np.abs(theta).argmax(axis=1)])
+        theta = theta * signs[:, None]
+        if np.linalg.det(theta) < 0:
+            theta[-1] *= -1.0
+        return theta, -float(best.value)
+
+
 def _is_F_diagonal(gp) -> bool:
     """F-diagonality, read from the GP's meta.json kernel options
     (reference calibrators.py:129-132)."""

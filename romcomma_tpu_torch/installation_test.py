@@ -4,8 +4,8 @@ N=300 samples, K=2 folds, noise 0.04 (determined), variant GPR isotropic then
 anisotropic, all three GSA kinds with standard errors (non-partial T), and
 the five results Collections.
 
-It computes on the CUDA device when there is one, unless the caller asks for
-the CPU::
+It computes on the CUDA device, and raises where there is none unless the
+caller asks for the CPU::
 
     from romcomma_tpu_torch import installation_test, user
     with user.contexts.Environment('CPU run', device='CPU'):

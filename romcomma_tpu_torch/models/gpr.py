@@ -32,6 +32,7 @@ from romcomma_tpu_torch.models.params import (covariant_constrain, covariant_ini
                                               covariant_mask, variant_constrain, variant_init,
                                               variant_mask)
 from romcomma_tpu_torch.ops.gram import rbf_gram_covariant, rbf_gram_variant
+from romcomma_tpu_torch.ops.linalg import tri_solve
 
 
 class Likelihood(Model):
@@ -219,6 +220,88 @@ class GPR(Model):
         if self._mean_function is not None:
             mean = mean + self._mean_function(torch.as_tensor(np.asarray(x), dtype=torch.float64)).numpy()
         return np.atleast_2d(mean), np.atleast_2d(np.sqrt(var))
+
+    def predict_gradient(self, x: np.ndarray, y_instead_of_f: bool = True
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Gradient-GP prediction dy/dx (reference gpr/models.py:386-415,
+        romcomma_tpu gpr.py:626-673): mean (o,L,M) and covariance, variant
+        (o,o,L,M,M) | covariant (o,L,o,L,M,M), from the analytic RBF derivative
+        d k(X,x)/dx = k(X,x) (X - x)/lam^2 (covariant: (X/lam_L - x/lam_l)/lam_l).
+
+        Computed in float64 against the float64 posterior factors whatever the
+        working dtype, as predict(exact_sd=True) is, so its grams take the
+        plain path. Test points go through in chunks of PREDICT_CHUNK // M,
+        which bounds the (L, N, chunk, M) derivative; the covariance block of
+        two chunks solves the second chunk again. ``y_instead_of_f`` is
+        romcomma_tpu's signature: neither package reads it."""
+        K_cho, K_inv_Y = self.posterior_factors
+        f64 = torch.float64
+        raw = {name: value.to(f64) for name, value in self._raw().items()}
+        X, xs = self._tensor(self._X, f64), self._tensor(x, f64)
+        o, L, M, N = xs.shape[0], self._L, self._M, self._N
+        if self.is_covariant:
+            c = covariant_constrain(raw)
+            lam = torch.broadcast_to(c['lengthscales'], (L, M))
+
+            def derivative(xc):                                            # (L,N,l,c,M)
+                KXx = rbf_gram_covariant(X, xc, c['lengthscales'], c['F'])  # (L,N,l,c)
+                u = X[None, :, None, None, :] / lam[:, None, None, None, :]
+                v = xc[None, None, None, :, :] / lam[None, None, :, None, :]
+                return KXx[..., None] * (u - v) / lam[None, None, :, None, :]
+
+            def solve(d):
+                return tri_solve(K_cho, d.reshape(L * N, -1)).reshape(d.shape)
+
+            mean_of = 'LNloM, LiN -> olM'
+            cross = 'LNlOM, LNlom -> OLolMm'
+            var = torch.zeros((o, L, o, L, M, M), dtype=f64, device=X.device)
+
+            def block(I, J):
+                return var[I, :, J]
+
+            kxx = rbf_gram_covariant(xs, xs, c['lengthscales'], c['F'])    # (L,o,l,o)
+            ddxxkxx = torch.einsum('LM, lM, LOlo -> OLolM', 1 / lam, 1 / lam, kxx)
+        else:
+            c = variant_constrain(raw)
+            lam = torch.broadcast_to(c['lengthscales'], (L, M))
+
+            def derivative(xc):                                            # (L,N,c,M)
+                KXx = rbf_gram_variant(X, xc, c['lengthscales'], c['variance'])   # (L,N,c)
+                diff = (X[None, :, None, :] - xc[None, None, :, :]) / (lam ** 2)[:, None, None, :]
+                return KXx[..., None] * diff
+
+            def solve(d):
+                return tri_solve(K_cho, d.reshape(L, N, -1)).reshape(d.shape)
+
+            mean_of = 'lNoM, liN -> olM'
+            cross = 'LNOM, LNom -> OoLMm'
+            var = torch.zeros((o, o, L, M, M), dtype=f64, device=X.device)
+
+            def block(I, J):
+                return var[I, J]
+
+            kxx = rbf_gram_variant(xs, xs, c['lengthscales'], c['variance'])    # (L,o,o)
+            ddxxkxx = torch.einsum('LM, LM, LOo -> OoLM', 1 / lam, 1 / lam, kxx)
+        chunk = max(1, self.PREDICT_CHUNK // M)
+        chunks = [slice(start, start + chunk) for start in range(0, o, chunk)]
+        means = []
+        with torch.no_grad():
+            for i, I in enumerate(chunks):
+                d = derivative(xs[I])
+                means.append(torch.einsum(mean_of, d, K_inv_Y))
+                A_I = solve(d)
+                del d
+                block(I, I).copy_(-torch.einsum(cross, A_I, A_I))
+                for J in chunks[i + 1:]:
+                    A_J = solve(derivative(xs[J]))
+                    block(I, J).copy_(-torch.einsum(cross, A_I, A_J))
+                    block(J, I).copy_(-torch.einsum(cross, A_J, A_I))
+            torch.diagonal(var, dim1=-2, dim2=-1).add_(ddxxkxx)
+        mean = torch.cat(means).cpu().numpy()
+        if self._mean_function is not None and hasattr(self._mean_function, 'gradient'):
+            mean = mean + self._mean_function.gradient(
+                torch.as_tensor(np.asarray(x), dtype=f64)).numpy()
+        return mean, var.cpu().numpy()
 
     def predict_f(self, x: np.ndarray, full_cov: bool = False,
                   full_output_cov: bool = False) -> Tuple[np.ndarray, np.ndarray]:

@@ -5,7 +5,8 @@ The reference's ``MOMeanFunction`` defaults to ``Zero``, and every model the
 reference constructs uses that default (gpf/models.py:127). The GP core
 (models.gp) is written against the Zero prior mean; a non-zero mean composes
 through ``GPR(..., mean_function=...)`` (models/gpr.py): the GP fits the
-residuals ``Y - mean(X)`` and predictions add the mean back.
+residuals ``Y - mean(X)`` and predictions add the mean back; ``gradient(x)``
+(o, L, M) is what ``GPR.predict_gradient`` adds to its posterior mean.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ class Zero:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return torch.zeros((x.shape[0], self.L), dtype=x.dtype, device=x.device)
 
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((x.shape[0], self.L, x.shape[1]), dtype=x.dtype, device=x.device)
+
 
 class Constant:
     """Constant prior mean c (L,) per output."""
@@ -32,6 +36,9 @@ class Constant:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return torch.broadcast_to(self.c[None, :].to(x), (x.shape[0], self.L))
+
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((x.shape[0], self.L, x.shape[1]), dtype=x.dtype, device=x.device)
 
 
 class Linear:
@@ -44,3 +51,6 @@ class Linear:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.A.to(x) + self.b[None, :].to(x)
+
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.broadcast_to(self.A.T[None, :, :].to(x), (x.shape[0],) + self.A.T.shape)

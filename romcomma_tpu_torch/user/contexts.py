@@ -36,10 +36,12 @@ def Environment(name: str = '', device: str = '', profile_dir: Optional[str] = N
 
     Args:
         name: Printed label.
-        device: 'CPU' / 'GPU' / '' (automatic: CUDA when present, else the
-            CPU). The port computes on that device for the body
+        device: 'CPU' / 'GPU' / '' (the device already pinned, else the CUDA
+            device). The port computes on that device for the body
             (base.definitions.device() returns it) and on the previous one
-            after. Asking for 'GPU' where there is no CUDA device raises.
+            after. Asking for 'GPU', or for '' with nothing pinned, where there
+            is no CUDA device raises RuntimeError: the CPU is used only when
+            asked for.
         profile_dir: If given, a torch.profiler trace is written there.
     """
     from romcomma_tpu_torch.base.definitions import FLOAT, device as compute_device, pinned_device

@@ -1,4 +1,4 @@
-"""Workflow orchestration: run.gpr / run.gsa (reference: romcomma/user/run.py).
+"""Workflow orchestration: run.gpr / run.gsa / run.rom (reference: romcomma/user/run.py).
 Counterpart of ``romcomma_tpu/user/run.py``.
 
 Reproduces the reference's recursion and tri-state expansion exactly:
@@ -168,3 +168,11 @@ def gsa(name: str, repo: Repository, is_covariant: Optional[bool], is_isotropic:
                 if not ignore_exceptions:
                     raise
     return names
+
+
+def rom(name: str, repo: Repository, m: int = 1, **kwargs) -> List[Dict]:
+    """Undertake ROM (iterative input-basis rotation) across the Folds of a
+    Repository: rom.run_rom, as romcomma_tpu's run.rom (run.py:228-233). The
+    reference has no working equivalent (its ROM is dormant, rom/old.py)."""
+    from romcomma_tpu_torch.rom import run_rom
+    return run_rom(name, repo, m=m, **kwargs)

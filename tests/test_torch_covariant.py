@@ -26,11 +26,21 @@ from romcomma_tpu.models.gpr import MOGP as JaxMOGP
 from romcomma_tpu.ops import gram as jax_gram
 from romcomma_tpu.ops import pallas_kernels
 from romcomma_tpu_torch import user
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.data.storage import Fold, Repository
 from romcomma_tpu_torch.gsa import calibrators
 from romcomma_tpu_torch.models import gp, params
 from romcomma_tpu_torch.models.gpr import MOGP
 from romcomma_tpu_torch.ops import gram, gram_kernels
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 

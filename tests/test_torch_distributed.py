@@ -22,6 +22,7 @@ from romcomma_tpu.data.storage import Repository as JaxRepository
 from romcomma_tpu.models.gpr import MOGP as JaxMOGP
 from romcomma_tpu.parallel import distributed as jax_dist
 from romcomma_tpu_torch import north_star
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.data.storage import Fold, Repository
 from romcomma_tpu_torch.models import gp, params
 from romcomma_tpu_torch.models.gpr import MOGP
@@ -30,6 +31,15 @@ from romcomma_tpu_torch.ops import lbfgs
 from romcomma_tpu_torch.ops.transforms import positive_inverse
 from romcomma_tpu_torch.parallel import distributed
 from romcomma_tpu_torch.parallel.distributed import DistributedGP
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 

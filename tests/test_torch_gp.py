@@ -9,9 +9,19 @@ import torch
 
 from romcomma_tpu.models import gp as jax_gp
 from romcomma_tpu.models import params as jax_params
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.models import gp, params
 from test_reference_fixture import (F_VARIANCE, LML_CONVERGED, LML_PER_OUTPUT, LML_TOTAL,
                                     MEAN_FACTOR)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 

@@ -16,8 +16,18 @@ from romcomma_tpu.gsa import base as jax_base
 from romcomma_tpu.gsa import calibrators as jax_calibrators
 from romcomma_tpu.models import gp as jax_gp
 from romcomma_tpu.models.params import variant_constrain, variant_init
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.gsa import base, calibrators
 from test_reference_fixture import SOBOL_S, SOBOL_V
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 

@@ -13,6 +13,7 @@ import math
 import pytest
 import torch
 
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.ops import gram, gram_kernels
 
 pytestmark = pytest.mark.cuda
@@ -36,7 +37,8 @@ GRAD_RTOL = 1e-4
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the unit-gram kernel has no CPU mode')
-    return torch.device('cuda')
+    with pinned_device(torch.device('cuda')):
+        yield torch.device('cuda')
 
 
 def _inputs(A, B, M, on, seed=0):

@@ -1,8 +1,8 @@
 """The port stands alone: a fresh process imports romcomma_tpu_torch, trains
 small models through run.gpr (the variant and the covariant MOGP, and the
-variant again through the large-N route, DistributedGP) and runs their GSA
-through run.gsa (the variant with standard errors) on the CPU, without
-importing jax or romcomma_tpu."""
+variant again through the large-N route, DistributedGP), runs their GSA
+through run.gsa (the variant with standard errors) and one ROM.calibrate, on
+the CPU it asks for, without importing jax or romcomma_tpu."""
 
 import subprocess
 import sys
@@ -23,7 +23,7 @@ df = pd.DataFrame(np.concatenate((X, user.functions.ISHIGAMI(X)), axis=1),
                   columns=pd.MultiIndex.from_tuples([('X', f'X.{{i}}') for i in range(3)]
                                                     + [('Y', f'Y.{{i}}') for i in range(3)]))
 repo = Repository.from_df({str(tmp_path / 'repo')!r}, df).into_K_folds(1)
-with user.contexts.Environment('port'):
+with user.contexts.Environment('port', device='CPU'):
     user.run.gpr('gpr', repo, is_read=False, is_covariant=False, is_isotropic=True, maxiter=20)
     user.run.gsa('gpr', repo, is_covariant=False, is_isotropic=True, is_error_calculated=True,
                  is_T_partial=False)
@@ -31,7 +31,12 @@ with user.contexts.Environment('port'):
     user.run.gsa('gpr', repo, is_covariant=True, is_isotropic=False)
     user.run.gpr('large', repo, is_read=False, is_covariant=False, is_isotropic=False, maxiter=20,
                  large_n_threshold=1)
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.rom import ROM
+    ROM('rom', Fold(repo, 0), m=1, iterations=1, rotation_method='sobol', maxiter=20,
+        theta_maxiter=10, theta_starts=1).calibrate()
 assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
+assert 'romcomma_tpu_torch.rom.rom' in sys.modules
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
 """
     done = subprocess.run([sys.executable, '-c', script], capture_output=True, text=True,
@@ -46,3 +51,5 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
     assert (tmp_path / 'repo' / 'fold.0' / 'gpr.c.a' / 'test.csv').exists()
     for k in (0, 1):
         assert (tmp_path / 'repo' / f'fold.{k}' / 'large.v.a' / 'test.csv').exists()
+    for csv in ('meta.json', 'rotation.csv'):
+        assert (tmp_path / 'repo' / 'fold.0' / 'rom' / csv).exists()

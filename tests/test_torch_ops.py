@@ -8,7 +8,17 @@ import torch
 
 from romcomma_tpu.ops import linalg as jax_linalg
 from romcomma_tpu.ops import transforms as jax_transforms
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.ops import linalg, transforms
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 

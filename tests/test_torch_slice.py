@@ -18,10 +18,20 @@ from romcomma_tpu.data.storage import Repository as JaxRepository
 from romcomma_tpu.models import means as jax_means
 from romcomma_tpu.models.gpr import MOGP as JaxMOGP
 from romcomma_tpu_torch import user
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.data.storage import Fold, Repository
 from romcomma_tpu_torch.models import gp as port_gp
 from romcomma_tpu_torch.models import means
 from romcomma_tpu_torch.models.gpr import MOGP
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 
@@ -163,16 +173,32 @@ def test_environment_refuses_a_device_it_cannot_give(monkeypatch, wanted, has_ca
     only."""
     from romcomma_tpu_torch.base.definitions import device
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: has_card)
-    before = device()
-    if not has_card:
-        with pytest.raises(RuntimeError, match='no CUDA device'):
+    with pinned_device(None):
+        if not has_card:
+            with pytest.raises(RuntimeError, match='no CUDA device'):
+                with user.contexts.Environment('port', device=wanted):
+                    pass
+        else:
+            before = device()
+            assert before == torch.device('cuda')
             with user.contexts.Environment('port', device=wanted):
+                assert device() == torch.device('cpu')
+            assert device() == before
+
+
+@pytest.mark.parametrize('ask', ['device', 'Environment'])
+def test_no_cuda_device_and_no_cpu_asked_for_raises(monkeypatch, ask):
+    """Without a CUDA device the port computes on the CPU only where it is
+    asked to: device() and Environment(device='') raise, naming how to ask."""
+    from romcomma_tpu_torch.base.definitions import device
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pinned_device(None), pytest.raises(RuntimeError, match="Environment\\(device='CPU'\\)"):
+        if ask == 'device':
+            device()
+        else:
+            with user.contexts.Environment('port'):
                 pass
-    else:
-        assert before == torch.device('cuda')
-        with user.contexts.Environment('port', device=wanted):
-            assert device() == torch.device('cpu')
-    assert device() == before
+    assert device() == torch.device('cpu')
 
 
 def test_gsa_same_file_set(gsa_trees):

@@ -6,10 +6,21 @@ import random
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 from romcomma_tpu.data import storage as jax_storage
+from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.data import storage
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _on_the_cpu():
+    """The port computes on the CPU here because the tests ask for it: it
+    raises where there is no CUDA device and nothing was asked for."""
+    with pinned_device(torch.device('cpu')):
+        yield
+
 
 torch.set_num_threads(1)
 
