@@ -16,19 +16,32 @@ Phases (each prints its result and its time; none catches its own failure):
      back-to-back calls each after warm-up),
      the kernels' device time (torch.profiler), the bound, and the wrapper's
      host time per call; and the forward's times at the covariant shapes;
+     then the batched launch (one launch for a batch of grams) against its
+     plain version and, bit for bit, against one launch per member, at the
+     main path's batches (6, 4096^2, 30), (6, 5120^2, 30), (3, 8192^2, 30)
+     and a ragged two-operand one, each timed against its members' single
+     launches, with its bound;
   4. the main path at full size through the user entry points:
      sample OAKLEY2004 at N=8192, M=30 -> into_K_folds(2) -> run.gpr (variant
-     MOGP, isotropic then anisotropic, maxiter=50, tested), in float32, so the
-     training grams go through the kernel; then the checks that the run went
-     through the kernel and that its LMLs match the float64 plain path;
+     MOGP, isotropic then anisotropic, maxiter=50, tested, fold_parallel=True:
+     the two 4096-row folds' six descents in lockstep through one batched
+     launch per evaluation, the improper fold alone), in float32, so the
+     training grams go through the kernel; each fold group's time, launches
+     and every descent's scipy stop and iterations; then the checks that the
+     run went through the kernel and its batched launch and that its LMLs
+     match the float64 plain path;
   5. a profile of one float32 LML value-and-gradient at N=4096 and N=8192;
   6. the GSA on the card: run.gsa (all three kinds, standard errors,
-     non-partial T, float64) on phase 4's trained repository (3 folds,
+     non-partial T, float64, fold_parallel=True: the two 4096-row folds in
+     one stacked pass) on phase 4's trained repository (3 folds,
      N = 4096, 4096, 8192, M=30, L=3), with the checks that every S/V/T/W
      is written and finite, the full slice's S has a unit diagonal, CLOSED S
-     grows with m and T >= 0; each fold's time and its V-pass / W-T-sweep /
-     psi-solve split, the chunk counts, peak device memory, and the top
-     device kernels of one N=4096 fold (torch.profiler); then the port's
+     grows with m and T >= 0; each fold group's time and its V-pass /
+     W-T-sweep / psi-solve split, the chunk counts, peak device memory, the
+     top device kernels of one N=4096 fold (torch.profiler), and the stacked
+     pass of the two 4096-row folds profiled beside one fold's; the card's
+     factorized W/T sweep against its own per-slice path on an
+     installation-size fold; then the port's
      installation test on the card, held within ULP_SPREADS of a one-ulp
      spread to its GSA on the CPU from the card's float64 inputs, to its
      own chunk loops against one chunk, to run.gsa on a copy of the trained
@@ -74,12 +87,22 @@ Phases (each prints its result and its time; none catches its own failure):
         inputs: predict_gradient (variant, and covariant with F
         non-diagonal), V_rotated at a random orthonormal P, the gradient of
         optimize_theta's objective in the Cayley parameters, and _cayley.
+ 10. the sequential loop beside the batched path: on a copy of phase 4's
+     sampled repository, run.gpr and run.gsa with fold_parallel=False, their
+     wall-clocks and launches printed beside phases 4 and 6's; per fold and
+     output the batched descent's LML held to the sequential one's within
+     phase 4's first-order bound, their iteration counts side by side; and,
+     from phase 4's trained parameters, the fold-stacked GSA of phase 6 held
+     to the per-fold GSA in S, V, W and T^2 within ULP_SPREADS of their
+     one-ulp spreads.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
 of phase 4 and of phase 7, the north star and run.gpr of phase 8 and the two
-ROMs of phase 9, each counted from 0 just before it runs. Exits non-zero, printing no result, where there is
-no CUDA device or no checkout around the script.
+ROMs of phase 9, each counted from 0 just before it runs, and, as a path of
+the same kernel, its batched launches among them (phases 4 and 8b). Exits
+non-zero, printing no result, where there is no CUDA device or no checkout
+around the script.
 """
 
 from __future__ import annotations
@@ -114,6 +137,16 @@ TIMED_SHAPES = [(4096, 4096, 30), (8192, 8192, 30), (20000, 20000, 30), (10240, 
 COVARIANT_TIMED_SHAPES = [(12288, 12288, 30), (24576, 24576, 30)]
 #: (L, A, B, M) of the covariant gram checked through its kernel wrapper.
 COVARIANT_GRAM_CASE = (3, 2048, 1536, 30)
+#: (n, A, B, M, u is v) of the batched launch: the two 4096-row folds x 3
+#: outputs (phase 4's fold group), phase 8b's two 5120-row folds x 3, the
+#: improper fold's 3 outputs at 8192 (rbf_gram_variant in test() and
+#: check_K_inv_Y), and a ragged two-operand batch (masked stores, 3 M chunks).
+BATCH_SHAPES = [(6, 4096, 4096, 30, True), (6, 5120, 5120, 30, True),
+                (3, 8192, 8192, 30, True), (3, 4097, 1000, 70, False)]
+#: Phase 10's copy of phase 4's sampled repository.
+SEQUENTIAL_ROOT = ROOT / 'build' / 'chip_smoke_sequential'
+#: What phase 4 leaves for phase 10: its calibration records and batched launches.
+MAIN_PATH = {}
 TIMING_SAMPLES, CALLS_PER_SAMPLE = 50, 10
 
 #: The H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
@@ -216,13 +249,13 @@ def host_us_per_call(torch, fn, calls=2000):
     return host
 
 
-def forward_bound_ms(A, B, M_, shared):
-    """The least time the H100 could take for one forward: each input read
-    once and E written once at the HBM rate, against the kernel's operations
-    at their type's peak (3xTF32 cross term 3 * 2 A B M on the tensor cores;
-    about 8 float32 operations per output in the epilogue)."""
-    stored = 4 * (A * B + (A if shared else A + B) * M_)
-    operations = max(3 * 2 * A * B * M_ / TF32_FLOPS, 8 * A * B / F32_FLOPS)
+def forward_bound_ms(A, B, M_, shared, n=1):
+    """The least time the H100 could take for one forward of n grams: each
+    input read once and E written once at the HBM rate, against the kernel's
+    operations at their type's peak (3xTF32 cross term 3 * 2 A B M on the
+    tensor cores; about 8 float32 operations per output in the epilogue)."""
+    stored = 4 * n * (A * B + (A if shared else A + B) * M_)
+    operations = n * max(3 * 2 * A * B * M_ / TF32_FLOPS, 8 * A * B / F32_FLOPS)
     seconds = stored / HBM_BYTES_PER_S
     return 1e3 * max(seconds, operations), 'bytes' if seconds >= operations else 'operations'
 
@@ -339,6 +372,53 @@ def check_covariant_gram(torch, gram_kernels):
     require(err <= VALUE_TOL and grad_err <= GRAD_RTOL, ('covariant gram', err, grad_err))
 
 
+def check_batched(torch, gram_kernels):
+    """Phase 3, the batched launch: each batch of BATCH_SHAPES against the
+    plain version (VALUE_TOL) and, bit for bit, against one launch per member;
+    then the batched launch, its members' single launches and the plain
+    version timed (CUDA events), the device time, and the bound. Returns
+    (max error, {shape: (ms, plain ms, bound ms, bound by)})."""
+    max_err, times = 0.0, {}
+    for n, A, B, M_, shared in BATCH_SHAPES:
+        g = torch.Generator().manual_seed(n * A)
+        scale = 1.5 / math.sqrt(M_)
+        u = (torch.randn(n, A, M_, generator=g) * scale).cuda()
+        v = u if shared else (torch.randn(n, B, M_, generator=g) * scale).cuda()
+        before = (gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES)
+        got = gram_kernels.unit_gram_cuda(u, v)
+        torch.cuda.synchronize()
+        require((gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES) ==
+                (before[0] + 1, before[1] + 1), 'a batch was not one launch')
+        err = (got - gram_kernels.unit_gram_plain(u, v)).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and err <= VALUE_TOL, (n, A, B, M_, err))
+        same = all(torch.equal(got[i], gram_kernels.unit_gram_cuda(u[i], v[i])) for i in range(n))
+        require(same, (n, A, B, M_, 'a member differs from its own launch'))
+        max_err = max(max_err, err)
+        counts = (TIMING_SAMPLES, CALLS_PER_SAMPLE) if n * A * B <= 6 * 4096 ** 2 else (20, 5)
+
+        def singles():
+            for i in range(n):
+                gram_kernels.unit_gram_cuda(u[i], v[i])
+
+        (batched,), (single,), (plain,) = (
+            spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(u, v)], *counts),
+            spread_ms(torch, [singles], *counts),
+            spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(u, v)], samples=5, calls=2))
+        device = kernel_device_ms(torch, lambda: gram_kernels.unit_gram_cuda(u, v), calls=10)
+        bound, bound_by = forward_bound_ms(A, B, M_, shared, n)
+        times[(n, A, B, M_)] = (batched[1], plain[1], bound, bound_by)
+        print(f'batch ({n}, {A}, {B}, {M_}{", u is v" if shared else ""}): max |kernel - plain| '
+              f'{err:.3e} (tol {VALUE_TOL}), each member bit for bit its own launch; ms, min / '
+              f'median / max of {counts[0]} samples of {counts[1]} calls: one batched launch '
+              f'{batched[0]:.4f} / {batched[1]:.4f} / {batched[2]:.4f}, {n} single launches '
+              f'{single[0]:.4f} / {single[1]:.4f} / {single[2]:.4f}, plain (5 samples of 2) '
+              f'{plain[1]:.4f}; bound {bound:.4f} ms ({bound_by}), batched median at '
+              f'{bound / batched[1]:.3f} of it, singles at {bound / single[1]:.3f}; device time '
+              f'per batched call {share_of(bound, device)}', flush=True)
+        del u, v, got
+    return max_err, times
+
+
 def main_path(torch, user, gram_kernels):
     """Phase 4: sample -> k-fold -> run.gpr at full size, through the kernel."""
     from romcomma_tpu_torch.models import gp, params
@@ -352,16 +432,24 @@ def main_path(torch, user, gram_kernels):
     repo = user.sample.Function(root, user.sample.DOE.latin_hypercube, user.functions.OAKLEY2004,
                                 N=N, M=M, noise_variance=noise, overwrite_existing=True,
                                 seed=SEED).repo.into_K_folds(K)
-    gram_kernels.LAUNCHES = 0
-    t0 = time.perf_counter()
-    names = user.run.gpr('gpr', repo, is_read=False, is_covariant=False, is_isotropic=None,
-                         maxiter=MAXITER)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = gram_kernels.LAUNCHES
+    shutil.rmtree(SEQUENTIAL_ROOT, ignore_errors=True)
+    shutil.copytree(repo.folder, SEQUENTIAL_ROOT)             # phase 10's sampled copy
+    gram_kernels.LAUNCHES = gram_kernels.BATCHED_LAUNCHES = 0
+    with calibration_records(torch, gram_kernels) as records:
+        t0 = time.perf_counter()
+        names = user.run.gpr('gpr', repo, is_read=False, is_covariant=False, is_isotropic=None,
+                             maxiter=MAXITER, fold_parallel=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, batched = gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES
     print(f'run.gpr: {seconds:.2f} s, models {names}, folds {list(repo.folds)}, '
-          f'unit-gram kernel launches {launches}', flush=True)
+          f'unit-gram kernel launches {launches}, of them batched {batched}', flush=True)
+    print_calibration_records(records)
     require(launches > 0, 'the main path never launched the unit-gram kernel')
+    require(batched > 0 and any(r['step'] == 'fold-batched' and r['size'] == K * 3
+                                for r in records),
+            'the main path never ran a fold group through the batched launch')
+    MAIN_PATH.update(records=records, batched_launches=batched)
     require(names == ['gpr.v.i', 'gpr.v.a'], names)
     worst = 0.0
     for k in repo.folds:
@@ -453,42 +541,57 @@ def gsa_records(torch, keep_inputs=False):
     (posterior factors, calibrator set-up and every slice of every kind), the
     calibrator's interval timings and chunk counts, and its results on the
     host, and with keep_inputs its float64 inputs (F, K_cho, K_inv_Y, Lambda,
-    X) too, and K^-1 y among its results. run.gsa is left as it is; the record wraps the two functions it
-    reaches, and restores them on exit."""
+    X) too, and K^-1 y among its results. The folds of a fold group, which
+    run.gsa's batched path computes in one stacked pass, carry the group's
+    size, wall-clock and timings. run.gsa is left as it is; the record wraps
+    the functions it reaches (run.marginalize_all_kinds, one fold, and
+    run.marginalize_all_kinds_folds, a group, and under both
+    calibrators.marginalize_intervals_folds), and restores them on exit."""
     from romcomma_tpu_torch.gsa import calibrators
     from romcomma_tpu_torch.user import run
     records = []
-    marginalize, intervals = run.marginalize_all_kinds, calibrators.ClosedSobolWithError.marginalize_intervals
+    marginalize, folds = run.marginalize_all_kinds, run.marginalize_all_kinds_folds
+    intervals = calibrators.marginalize_intervals_folds
 
-    def timed_intervals(cal, slices):
-        out = intervals(cal, slices)
-        records.append({'N': cal.N, 'V0_chunk': cal._auto_n_chunk(),
-                        'timings': dict(cal.last_interval_timings)})
+    def timed_intervals(cals, slices):
+        out = intervals(cals, slices)
+        for cal in cals:
+            records.append({'N': cal.N, 'V0_chunk': cal._auto_n_chunk(), 'group': len(cals),
+                            'timings': dict(cal.last_interval_timings)})
         return out
 
-    def timed_marginalize(gp, *args, **kwargs):
+    def keep(record, gp, by_kind, extras, seconds):
+        record['seconds'] = seconds
+        record['results'] = ({kind: {k: v.cpu().numpy() for k, v in out.items()}
+                              for kind, out in by_kind.items()},
+                             {k: v.cpu().numpy() for k, v in extras.items()})
+        if keep_inputs:      # gp's posterior factors are cached: no second Cholesky
+            record['inputs'] = {k: v.cpu() for k, v in
+                                calibrators.ClosedSobol.gather_arrays(gp).items()}
+            record['shape'] = {'L': gp.L, 'M': gp.M, 'N': gp.N}
+            record['results'][1]['K_inv_Y'] = record['inputs']['K_inv_Y'].numpy()
+
+    def timed(function, gps, *args, **kwargs):
+        """function(gps, ...), one (by_kind, extras) per gp, each kept in the
+        record its calibrator made."""
         t0 = time.perf_counter()
-        by_kind, extras = marginalize(gp, *args, **kwargs)
+        outs = function(gps, *args, **kwargs)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-        records[-1]['seconds'] = time.perf_counter() - t0
-        records[-1]['results'] = ({kind: {k: v.cpu().numpy() for k, v in out.items()}
-                                   for kind, out in by_kind.items()},
-                                  {k: v.cpu().numpy() for k, v in extras.items()})
-        if keep_inputs:      # gp's posterior factors are cached: no second Cholesky
-            records[-1]['inputs'] = {k: v.cpu() for k, v in
-                                     calibrators.ClosedSobol.gather_arrays(gp).items()}
-            records[-1]['shape'] = {'L': gp.L, 'M': gp.M, 'N': gp.N}
-            records[-1]['results'][1]['K_inv_Y'] = records[-1]['inputs']['K_inv_Y'].numpy()
-        return by_kind, extras
+        seconds = time.perf_counter() - t0
+        for record, gp, (by_kind, extras) in zip(records[-len(gps):], gps, outs):
+            keep(record, gp, by_kind, extras, seconds)
+        return outs
 
-    run.marginalize_all_kinds = timed_marginalize
-    calibrators.ClosedSobolWithError.marginalize_intervals = timed_intervals
+    run.marginalize_all_kinds = lambda gp, *a, **k: timed(
+        lambda gps, *a_, **k_: [marginalize(gps[0], *a_, **k_)], [gp], *a, **k)[0]
+    run.marginalize_all_kinds_folds = lambda gps, *a, **k: timed(folds, gps, *a, **k)
+    calibrators.marginalize_intervals_folds = timed_intervals
     try:
         yield records
     finally:
-        run.marginalize_all_kinds = marginalize
-        calibrators.ClosedSobolWithError.marginalize_intervals = intervals
+        run.marginalize_all_kinds, run.marginalize_all_kinds_folds = marginalize, folds
+        calibrators.marginalize_intervals_folds = intervals
 
 
 def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW'):
@@ -518,15 +621,20 @@ def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW'):
 
 
 def print_gsa_records(records):
-    for r in records:
+    """One line per fold, or per fold group (its folds share the line)."""
+    i = 0
+    while i < len(records):
+        r = records[i]
         t = r['timings']
         chunk = r['V0_chunk'] or 'N'
-        print(f'  N={r["N"]}: GSA {r["seconds"]:.3f} s (posterior factors, set-up with the '
-              f'full V in chunks of {chunk}, intervals); V pass {t["v_pass_s"]:.3f} s '
+        who = f'fold group of {r["group"]} folds' if r['group'] > 1 else 'one fold'
+        print(f'  N={r["N"]}, {who}: GSA {r["seconds"]:.3f} s (posterior factors, set-up with '
+              f'the full V in chunks of {chunk}, intervals); V pass {t["v_pass_s"]:.3f} s '
               f'({t["v_chunks"]} chunks, loop {t["v_loop_s"]:.3f} s); W/T sweep '
               f'{t["wt_sweep_s"]:.3f} s (prep {t["e_prep_s"]:.3f} s, {t["e_chunks"]} chunks, '
               f'loop {t["e_loop_s"]:.3f} s, psi solve and determinants {t["e_solve_s"]:.3f} s)',
               flush=True)
+        i += r['group']
 
 
 def gsa_main_path(torch, user, gram_kernels, repo):
@@ -539,7 +647,8 @@ def gsa_main_path(torch, user, gram_kernels, repo):
     gram_kernels.LAUNCHES = 0
     with gsa_records(torch) as records:
         t0 = time.perf_counter()
-        names = user.run.gsa('gpr', repo, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
+        names = user.run.gsa('gpr', repo, kinds=user.run.GSA.ALL_KINDS, fold_parallel=True,
+                             **GSA_OPTIONS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -547,8 +656,11 @@ def gsa_main_path(torch, user, gram_kernels, repo):
           f'peak device memory {peak:.2f} GiB; unit-gram kernel launches {gram_kernels.LAUNCHES} '
           f'(the GSA runs in float64 and has no kernel of its own)', flush=True)
     print_gsa_records(records)
-    require(len(records) == len(repo.folds), records)
+    require(len(records) == len(repo.folds) and all('results' in r for r in records), records)
+    require([r['group'] for r in records] == [K, K, 1],
+            f'the {K} equal folds did not run as one fold group: {[r["group"] for r in records]}')
     check_gsa_tree(repo)
+    MAIN_PATH.update(gsa_records=records, gsa_seconds=seconds)
     fold = Fold(repo, 0)
     t0 = time.perf_counter()
     user.run.gsa('gpr', fold, kinds=user.run.GSA.ALL_KINDS, **GSA_OPTIONS)
@@ -570,6 +682,49 @@ def gsa_main_path(torch, user, gram_kernels, repo):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f'    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:230]}',
               flush=True)
+    profile_stacked_gsa(torch, repo)
+
+
+def profile_stacked_gsa(torch, repo):
+    """Phase 6: the stacked pass of the two 4096-row folds
+    (marginalize_all_kinds_folds) beside one fold's (marginalize_all_kinds),
+    each timed once and profiled once (device activity): wall-clock, device
+    busy time, idle share and kernel launches."""
+    from torch.autograd import DeviceType
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.gsa import calibrators
+    from romcomma_tpu_torch.gsa.models import GSA, Sobol
+    from romcomma_tpu_torch.models.gpr import MOGP
+    gps = [MOGP('gpr.v.a', Fold(repo, k), is_read=True, is_covariant=False, is_isotropic=False)
+           for k in range(K)]
+    sobols = [Sobol(gps[0], kind, -1, True, is_T_partial=False) for kind in GSA.ALL_KINDS]
+    kind_slices = {s.kind.name: tuple(s._m_dataset) for s in sobols}
+    runs = {f'stacked pass of folds 0..{K - 1}': lambda: calibrators.marginalize_all_kinds_folds(
+                gps, kind_slices, True, **sobols[0].meta),
+            'fold 0 alone': lambda: calibrators.marginalize_all_kinds(
+                gps[0], kind_slices, True, **sobols[0].meta)}
+    for gp in gps:
+        gp.posterior_factors                   # cached: no Cholesky in what is timed
+    readings = {}
+    for label, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            profiled = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e6
+        launches = sum(e.count for e in kernels)
+        readings[label] = (wall, launches)
+        print(f'{label} (N={gps[0].N}, all kinds, errors): {wall:.3f} s; profiled {profiled:.3f} s, '
+              f'device busy {busy:.3f} s, idle share {1 - busy / profiled:.3f}, {launches} kernel '
+              f'launches', flush=True)
+    MAIN_PATH['stacked_gsa'] = readings
 
 
 #: The card's GSA is held to the CPU's within this many times the spread
@@ -732,6 +887,8 @@ def gsa_card_against_cpu(torch, user):
             base, _ = gsa_of(inputs, shape)
             ulps = spread(base, lambda d: gsa_of(inputs | {'K_inv_Y': inputs['K_inv_Y'] * (
                 1 + 2.0 ** -52 * _signs(torch, inputs['K_inv_Y'].shape, 100 * k + d))}, shape)[0])
+            if k == 0:
+                first_ulps = ulps
             gp = model(repo, k)
             raw, X, Y = gp._variant_raw(), gp._tensor(gp.X), gp._tensor(gp.Y)
 
@@ -769,6 +926,45 @@ def gsa_card_against_cpu(torch, user):
     require(all(max(ratios) <= ULP_SPREADS for ratios in readings.values()),
             'the card and the CPU, or the card\'s chunked and one-chunk paths, computed '
             'different posterior factors or indices')
+    sweep_against_per_slice(card[0], first_ulps)
+
+
+def sweep_against_per_slice(record, ulps):
+    """Phase 6: on the card, the factorized W/T sweep of one installation-size
+    fold against the card's own per-slice path (ClosedSobolWithError.
+    marginalize), every slice of every kind, held within ULP_SPREADS of
+    ``ulps``, the fold's one-ulp-of-K^-1 y spread (check 1). The distances
+    beside tests/test_gsa_chunked.py's tolerances (rtol 1e-9; atol 1e-11, T
+    1e-7) are printed too: those suit its well-conditioned N=60 posterior,
+    and this one's W moves by ~2e-7 of its largest entry for one ulp of
+    K^-1 y."""
+    import numpy as np
+    from romcomma_tpu_torch.gsa import calibrators
+    shape, M_ = record['shape'], record['shape']['M']
+    t0 = time.perf_counter()
+    swept, _ = gsa_of(record['inputs'], shape)
+    sweep_s = time.perf_counter() - t0
+    cal = calibrators.ClosedSobolWithError.from_arrays(**record['inputs'], is_F_diagonal=True,
+                                                       **shape, is_T_partial=False)
+    t0 = time.perf_counter()
+    per_slice = {}
+    for kind, slice_of in SLICE_KINDS.items():
+        outs = [cal.marginalize(slice_of(m, M_)) for m in range(M_)]
+        per_slice[kind] = {key: np.stack([out[key].cpu().numpy() for out in outs], axis=-1)
+                           for key in 'SVWT'}
+    per_slice_s = time.perf_counter() - t0
+    excess = {key: max(float((np.abs(swept[0][kind][key] - per_slice[kind][key])
+                              - (1e-7 if key == 'T' else 1e-11)
+                              - 1e-9 * np.abs(per_slice[kind][key])).max())
+                       for kind in SLICE_KINDS) for key in 'SVWT'}
+    readings = []
+    within_spreads(f'the card\'s W/T sweep ({sweep_s:.3f} s) against its per-slice path '
+                   f'({per_slice_s:.3f} s), N={shape["N"]}, {len(SLICE_KINDS) * M_} slices',
+                   _table_errors(swept, (per_slice, swept[1])), ulps, readings)
+    print(f'  largest distance {max(readings):.3f} spreads (limit {ULP_SPREADS}); beside '
+          f'tests/test_gsa_chunked.py\'s tolerances, the worst excess by table: {excess}',
+          flush=True)
+    require(max(readings) <= ULP_SPREADS, ('sweep against per-slice', readings))
 
 
 #: The device that phase 7 measures and checks against the CPU.
@@ -788,16 +984,29 @@ INSTALLATION_N, INSTALLATION_M = 300, 7
 def calibration_records(torch, gram_kernels):
     """Record every MOGP.calibrate and MOGP.test that run.gpr makes: its
     fold, model, seconds (the card synchronised at both ends) and unit-gram
-    launches. run.gpr is left as it is; the methods are restored on exit."""
+    launches; and every fold group that run.gpr's batched path calibrates
+    (gp.calibrate_variant_folds), as one 'fold-batched' record of its
+    descents (size, seconds, launches, batched launches, each descent's
+    iterations and scipy stop) and, for each fold it writes back
+    (MOGP._finish_variant_calibration outside MOGP.calibrate), a 'calibrate'
+    record carrying the group's seconds and launches. run.gpr is left as it
+    is; the functions are restored on exit."""
+    from romcomma_tpu_torch.models import gp
     from romcomma_tpu_torch.models.gpr import MOGP
     records = []
+    state = {'in_calibrate': 0, 'group': None}
     originals = {'calibrate': MOGP.calibrate, 'test': MOGP.test}
+    finish, folds = MOGP._finish_variant_calibration, gp.calibrate_variant_folds
 
     def recorded(step, method):
         def wrapper(self, *args, **kwargs):
             torch.cuda.synchronize()
             launches, t0 = gram_kernels.LAUNCHES, time.perf_counter()
-            out = method(self, *args, **kwargs)
+            state['in_calibrate'] += step == 'calibrate'
+            try:
+                out = method(self, *args, **kwargs)
+            finally:
+                state['in_calibrate'] -= step == 'calibrate'
             torch.cuda.synchronize()
             records.append({'k': self.fold.meta['k'], 'name': self.folder.name, 'step': step,
                             'seconds': time.perf_counter() - t0,
@@ -805,13 +1014,55 @@ def calibration_records(torch, gram_kernels):
             return out
         return wrapper
 
+    def recorded_folds(raws, *args, **kwargs):
+        torch.cuda.synchronize()
+        launches, batched = gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES
+        t0 = time.perf_counter()
+        out = folds(raws, *args, **kwargs)
+        torch.cuda.synchronize()
+        K_, L_ = out[1].shape
+        state['group'] = {'k': None, 'step': 'fold-batched', 'size': K_ * L_, 'folds': K_,
+                          'seconds': time.perf_counter() - t0,
+                          'launches': gram_kernels.LAUNCHES - launches,
+                          'batched': gram_kernels.BATCHED_LAUNCHES - batched,
+                          'iterations': out[2].tolist(), 'stops': out[3], 'written': 0}
+        records.append(state['group'])
+        return out
+
+    def recorded_finish(self, *args, **kwargs):
+        out = finish(self, *args, **kwargs)
+        group = state['group']
+        if not state['in_calibrate'] and group is not None:
+            j = group['written']
+            group['written'] += 1
+            records.append({'k': self.fold.meta['k'], 'name': self.folder.name,
+                            'step': 'calibrate', 'seconds': group['seconds'],
+                            'launches': group['launches'], 'group': group['folds'],
+                            'iterations': group['iterations'][j], 'stops': group['stops'][j]})
+        return out
+
     for step, method in originals.items():
         setattr(MOGP, step, recorded(step, method))
+    MOGP._finish_variant_calibration, gp.calibrate_variant_folds = recorded_finish, recorded_folds
     try:
         yield records
     finally:
         for step, method in originals.items():
             setattr(MOGP, step, method)
+        MOGP._finish_variant_calibration, gp.calibrate_variant_folds = finish, folds
+
+
+def print_calibration_records(records):
+    """Each fold group's descents, then each fold's calibrate and test."""
+    for r in records:
+        if r['step'] == 'fold-batched':
+            print(f'  fold group of {r["folds"]} folds, {r["size"]} descents in lockstep: '
+                  f'{r["seconds"]:.2f} s, {r["launches"]} unit-gram launches ({r["batched"]} '
+                  f'batched); iterations {r["iterations"]}; scipy stops {r["stops"]}', flush=True)
+        else:
+            group = f' (in a fold group of {r["group"]})' if 'group' in r else ''
+            print(f'  fold.{r["k"]} {r["name"]} {r["step"]}{group}: {r["seconds"]:.2f} s, '
+                  f'{r["launches"]} launches', flush=True)
 
 
 def trained_covariant(torch, folder, on, dtype):
@@ -1317,7 +1568,7 @@ def large_route_phase(torch, user, gram_kernels):
                                 seed=SEED).repo.into_K_folds(LARGE_K)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gram_kernels.LAUNCHES = 0
+    gram_kernels.LAUNCHES = gram_kernels.BATCHED_LAUNCHES = 0
     with calibration_records(torch, gram_kernels) as records, \
             distributed_records(torch) as calls:
         t0 = time.perf_counter()
@@ -1326,8 +1577,11 @@ def large_route_phase(torch, user, gram_kernels):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = gram_kernels.LAUNCHES
+    MAIN_PATH['large_batched_launches'] = gram_kernels.BATCHED_LAUNCHES
+    print_calibration_records([r for r in records if r['step'] == 'fold-batched'])
     print(f'run.gpr N={LARGE_N}: {seconds:.2f} s, models {names}, folds {list(repo.folds)}, '
-          f'unit-gram kernel launches {launches}, peak device memory '
+          f'unit-gram kernel launches {launches} ({gram_kernels.BATCHED_LAUNCHES} batched), '
+          f'peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; DistributedGP calls '
           f'{[(c["N"], c["method"], str(c["dtype"]), c["iterations"]) for c in calls]}', flush=True)
     require(names == ['gpr.v.i', 'gpr.v.a'], names)
@@ -1701,6 +1955,88 @@ def rom_card_against_cpu(torch):
     require(not failures, failures)
 
 
+def _iterations(folder) -> list:
+    """The iteration counts of meta.json's result ("Converged in [...]")."""
+    result = json.loads((folder / 'meta.json').read_text())['result']
+    return json.loads(result[len('Converged in '):result.index(']') + 1])
+
+
+def sequential_phase(torch, user, gram_kernels, repo):
+    """Phase 10: run.gpr and run.gsa with fold_parallel=False on phase 4's
+    sampled copy, beside phases 4 and 6's batched runs; each fold and
+    output's LML against the batched one's within phase 4's first-order
+    bound, iterations side by side; then, from phase 4's trained
+    parameters, each batched fold's stacked GSA (phase 6) against its
+    per-fold GSA, within ULP_SPREADS of a one-ulp-of-K^-1 y spread taken on
+    the card (the CPU's would take minutes per draw at N=4096)."""
+    import numpy as np
+    import pandas as pd
+    from romcomma_tpu_torch.data.storage import Fold, Repository
+    from romcomma_tpu_torch.gsa import calibrators
+    from romcomma_tpu_torch.models import params
+    from romcomma_tpu_torch.models.gpr import MOGP
+    sequential = Repository(SEQUENTIAL_ROOT)
+    gram_kernels.LAUNCHES = 0
+    with calibration_records(torch, gram_kernels) as records:
+        t0 = time.perf_counter()
+        names = user.run.gpr('gpr', sequential, is_read=False, is_covariant=False,
+                             is_isotropic=None, maxiter=MAXITER, fold_parallel=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = gram_kernels.LAUNCHES
+    require(names == ['gpr.v.i', 'gpr.v.a'] and not any(r['step'] == 'fold-batched'
+                                                        for r in records), names)
+    print(f'run.gpr fold_parallel=False: {seconds:.2f} s, {launches} unit-gram launches; '
+          f'batched (phase 4): {MAIN_PATH["gpr_seconds"]:.2f} s, {MAIN_PATH["gpr_launches"]} '
+          f'launches', flush=True)
+    worst = 0.0
+    for k in repo.folds:
+        for name in names:
+            folders = [Fold(r, k).folder / name for r in (repo, sequential)]
+            lml = [pd.read_csv(f / 'likelihood' / 'log_marginal.csv', index_col=0).to_numpy()[0]
+                   for f in folders]
+            model = MOGP(name, Fold(repo, k), is_read=True, is_covariant=False,
+                         is_isotropic=name.endswith('.i'))
+            with torch.no_grad():
+                c = params.variant_constrain({n: t.double() for n, t in model._variant_raw().items()})
+            bound = (10 * model.N * 1.1920929e-07 * (c['variance'] / c['noise'] + 1.0)).cpu().numpy()
+            error = np.abs(lml[0] - lml[1])
+            worst = max(worst, float((error / bound).max()))
+            print(f'fold.{k} {name} N={model.N}: LML batched {lml[0].tolist()} sequential '
+                  f'{lml[1].tolist()}, |diff| {error.tolist()} bound {bound.tolist()}; iterations '
+                  f'batched {_iterations(folders[0])} sequential {_iterations(folders[1])}',
+                  flush=True)
+            require(bool((error <= bound).all()), (k, name, error, bound))
+    t0 = time.perf_counter()
+    user.run.gsa('gpr', sequential, kinds=user.run.GSA.ALL_KINDS, fold_parallel=False,
+                 **GSA_OPTIONS)
+    torch.cuda.synchronize()
+    gsa_seconds = time.perf_counter() - t0
+    check_gsa_tree(sequential)
+    stacked = MAIN_PATH['stacked_gsa']
+    print(f'run.gsa fold_parallel=False: {gsa_seconds:.2f} s; batched (phase 6): '
+          f'{MAIN_PATH["gsa_seconds"]:.2f} s; kernel launches (phase 6\'s profiles): '
+          + ', '.join(f'{label} {launch_count}' for label, (_, launch_count) in stacked.items()),
+          flush=True)
+    readings = []
+    for k, record in zip(range(K), MAIN_PATH['gsa_records']):
+        gp = MOGP('gpr.v.a', Fold(repo, k), is_read=True, is_covariant=False, is_isotropic=False)
+        inputs = calibrators.ClosedSobol.gather_arrays(gp)
+        shape = {'L': gp.L, 'M': gp.M, 'N': gp.N}
+        t0 = time.perf_counter()
+        per_fold, _ = gsa_of(inputs, shape)
+        per_fold_s = time.perf_counter() - t0
+        ulps = spread(per_fold, lambda d: gsa_of(inputs | {'K_inv_Y': inputs['K_inv_Y'] * (
+            1 + 2.0 ** -52 * _signs(torch, inputs['K_inv_Y'].shape, 100 * k + d).to(
+                inputs['K_inv_Y'].device))}, shape)[0])
+        within_spreads(f'fold {k} N={gp.N}: the stacked GSA (phase 6) against the per-fold GSA '
+                       f'({per_fold_s:.2f} s) from the same parameters, one-ulp-of-K^-1 y spread',
+                       _table_errors(record['results'], per_fold), ulps, readings)
+    print(f'stacked against per-fold GSA: largest distance {max(readings):.3f} spreads (limit '
+          f'{ULP_SPREADS}); LML: worst |batched - sequential| / bound {worst:.3e}', flush=True)
+    require(max(readings) <= ULP_SPREADS, 'the stacked GSA and the per-fold GSA differ')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1725,10 +2061,12 @@ def main() -> int:
 
     t = phase('3. kernel against plain')
     max_err, times = check_kernel(torch, gram_kernels)
+    batch_err, batch_times = check_batched(torch, gram_kernels)
     print(f'phase 3: {time.perf_counter() - t:.2f} s', flush=True)
 
     t = phase(f'4. main path: OAKLEY2004 N={N} M={M} K={K}, run.gpr maxiter={MAXITER}, float32')
     repo, launches, seconds, worst = main_path(torch, user, gram_kernels)
+    MAIN_PATH.update(gpr_seconds=seconds, gpr_launches=launches)
     print(f'phase 4: {time.perf_counter() - t:.2f} s (run.gpr {seconds:.2f} s); '
           f'worst LML error / bound {worst:.3e}', flush=True)
 
@@ -1774,7 +2112,13 @@ def main() -> int:
     print(f'phase 9: {time.perf_counter() - t:.2f} s (ROM sobol {sobol["rom_s"]:.2f} s, '
           f'active_subspace {active["rom_s"]:.2f} s)', flush=True)
 
+    t = phase(f'10. the sequential loop: run.gpr and run.gsa with fold_parallel=False on a copy '
+              f'of phase 4\'s sampled repository, beside phases 4 and 6')
+    sequential_phase(torch, user, gram_kernels, repo)
+    print(f'phase 10: {time.perf_counter() - t:.2f} s', flush=True)
+
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
+    batch_ms, batch_plain_ms, batch_bound_ms, batch_bound_by = batch_times[(6, 4096, 4096, 30)]
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'unit_gram', 'route': 'cuda',
@@ -1784,7 +2128,14 @@ def main() -> int:
                      + sobol_launches + active_launches),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': None}]}))
+        'library_ms': None}, {
+        'name': 'unit_gram (batched launch)', 'route': 'cuda',
+        'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
+        'replaces': 'romcomma_tpu/ops/pallas_kernels.py:84',
+        'launches': MAIN_PATH['batched_launches'] + MAIN_PATH['large_batched_launches'],
+        'max_abs_err': batch_err,
+        'ms': batch_ms, 'plain_ms': batch_plain_ms, 'bound_ms': batch_bound_ms,
+        'bound_by': batch_bound_by, 'library_ms': None}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

@@ -3,12 +3,15 @@
 //     E[a, b] = exp(-1/2 * max(|u_a|^2 + |v_b|^2 - 2 u_a . v_b, 0))
 //
 // for row-major float32 u (A, M) and v (B, M), written to a row-major (A, B)
-// output.
+// output; or, in one launch, for each member of a batch of such pairs,
+// u (batch, A, M) and v (batch, B, M) into (batch, A, B).
 //
 // Replaces romcomma_tpu/ops/pallas_kernels.py::_gram_kernel (the TPU tile
 // kernel launched by _unit_gram_impl). As there, the row norms, the cross
 // term and the exp epilogue are fused, so no (A, B) intermediate ever reaches
-// device memory.
+// device memory. The batch is the counterpart of the grid axis that JAX's
+// vmap adds to the pallas_call: romcomma_tpu vmaps the LML over outputs and
+// folds, and so builds all the training grams of a fold group in one launch.
 //
 // What bounds it. At the main path's shapes (A = B = 4096 or 8192, M = 30)
 // the inputs are under 1 MB and the output is A*B*4 bytes: storing it takes
@@ -37,7 +40,7 @@
 //    and keeps u_a . u_a. The diagonal then cancels to exactly 0 (E = 1),
 //    and near pairs cancel to an error relative to their distance.
 // 3. Persistent CTAs, one per SM, each walking a contiguous run of 128x128
-//    output tiles in row-major order. One producer warp brings each tile's
+//    output tiles in row-major order, member after member of a batch. One producer warp brings each tile's
 //    packed operands and norms into shared memory with bulk async copies
 //    (cp.async.bulk on an mbarrier), and skips u's block when the tile row has
 //    not changed.
@@ -54,8 +57,9 @@
 // The C entry launches the pre-pass and the kernel on the caller's stream and
 // returns cudaGetLastError(); the caller allocates the output and the packed
 // scratch of each operand: ceil(rows / 128) * (ceil(M / 32) * 8192 + 128)
-// floats, the hi/lo chunks of every 128-row block and then one norm per
-// padded row.
+// floats per member, the hi/lo chunks of every 128-row block and then one
+// norm per padded row, the members one after the other. Every offset of a
+// member into the operands, the scratch and the output is size_t.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -151,11 +155,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // The output is written once and not read back by this kernel: mark its
 // lines first to leave L2, so they do not push the operands out.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const float* src, int col, int row) {
+// The output is (batch, A, B): the box's third coordinate is the member.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const float* src, int col, int row,
+                                          int member) {
     uint64_t policy;
     asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
-    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3}], [%1], %4;"
-                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(col), "r"(row), "l"(policy)
+    asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%2, %3, %4}], [%1], %5;"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(col), "r"(row),
+                    "r"(member), "l"(policy)
                  : "memory");
 }
 
@@ -255,19 +262,30 @@ __device__ __forceinline__ const float* warpgroup_rows(const float* block, int g
     return block + g * (HALF_ROWS / 8) * (ROW_GROUP_BYTES / 4);
 }
 
+// Floats of packed scratch per member of an operand of `blocks` 128-row
+// blocks: the blocks' hi/lo chunks, then their norms.
+__host__ __device__ __forceinline__ size_t member_floats(int blocks, int chunks) {
+    return static_cast<size_t>(blocks) * (static_cast<size_t>(chunks) * BLOCK_FLOATS + BM);
+}
+
 // ---- the pack pre-pass ---------------------------------------------------
 
-// One CTA of two warpgroups per 128-row block of x (R, M). For each 32-column
+// One CTA of two warpgroups per 128-row block of each member of x (batch, R,
+// M), the members' blocks one after the other. For each 32-column
 // chunk it splits the rows into hi and lo parts in the core-matrix layout,
 // zero-padded, writes them to `packed` for the gram kernel and to shared
 // memory, and runs the block's diagonal tile of the cross term on them. The
 // diagonal of that tile is each row's squared norm, written to `norms`
 // (0 for the padding rows).
 __global__ void __launch_bounds__(CONSUMER_WARPS * 32)
-pack_kernel(const float* __restrict__ x, float* __restrict__ packed, float* __restrict__ norms,
-            int R, int M, int chunks) {
+pack_kernel(const float* __restrict__ x, float* __restrict__ scratch, int R, int M, int blocks,
+            int chunks) {
     __shared__ __align__(128) float block[BLOCK_FLOATS];
-    const int b = blockIdx.x, g = threadIdx.x / 128, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    const int member = blockIdx.x / blocks, b = blockIdx.x % blocks;
+    const int g = threadIdx.x / 128, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+    x += static_cast<size_t>(member) * R * M;
+    float* packed = scratch + member * member_floats(blocks, chunks);
+    float* norms = packed + static_cast<size_t>(blocks) * chunks * BLOCK_FLOATS;
     float d[64], small[64];
     for (int c = 0; c < chunks; ++c) {
         float* hi = packed + (static_cast<size_t>(b) * chunks + c) * BLOCK_FLOATS;
@@ -301,22 +319,25 @@ pack_kernel(const float* __restrict__ x, float* __restrict__ packed, float* __re
 
 // ---- the gram kernel -----------------------------------------------------
 
-// E over the tiles of (A, B), from the packed operands pu, pv and their
-// squared row norms nu, nv. TMA selects the epilogue at compile time (a
+// E over the tiles of every member's (A, B), from the packed operands and
+// squared row norms of each member in su and sv (member_floats apart). Tile
+// t is member t / (tiles_a * tiles_b)'s, so a CTA's run of tiles may cross
+// from one member into the next. TMA selects the epilogue at compile time (a
 // branch inside its unrolled loop would keep the compiler from interleaving
 // the 64 exps of a thread): the staged TMA store, or masked stores from
 // registers.
 template <bool TMA>
 __global__ void __launch_bounds__(THREADS, 1)
 unit_gram_kernel(const __grid_constant__ CUtensorMap out_map,   // unused without TMA
-                 const float* __restrict__ pu, const float* __restrict__ pv,
-                 const float* __restrict__ nu, const float* __restrict__ nv,
-                 float* __restrict__ out, int A, int B, int chunks, int tiles_b, int tiles) {
+                 const float* __restrict__ su, const float* __restrict__ sv,
+                 float* __restrict__ out, int A, int B, int chunks, int tiles_a, int tiles_b,
+                 int tiles) {
     extern __shared__ __align__(16) unsigned char raw[];
     Shared& sm = *reinterpret_cast<Shared*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
 
     // A contiguous run of tiles in row-major order, so u's block is reused.
+    // Row r of tiles is row r % tiles_a of member r / tiles_a.
     const int first = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles / gridDim.x);
     const int last = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -335,13 +356,18 @@ unit_gram_kernel(const __grid_constant__ CUtensorMap out_map,   // unused withou
         if (lane != 0) return;
         int parity = 1, previous = -1;
         for (int tile = first, n = 0; tile < last; ++tile, ++n) {
-            const int ti = tile / tiles_b, tj = tile % tiles_b;
+            const int row = tile / tiles_b, tj = tile % tiles_b;
+            const int member = row / tiles_a, ti = row % tiles_a;
+            const float* pu = su + member * member_floats(tiles_a, chunks);
+            const float* pv = sv + member * member_floats(tiles_b, chunks);
+            const float* nu = pu + static_cast<size_t>(tiles_a) * chunks * BLOCK_FLOATS;
+            const float* nv = pv + static_cast<size_t>(tiles_b) * chunks * BLOCK_FLOATS;
             for (int c = 0; c < chunks; ++c) {
                 bar_wait(&sm.empty, parity);
                 parity ^= 1;
-                const bool load_u = chunks > 1 || ti != previous;
+                const bool load_u = chunks > 1 || row != previous;
                 const bool load_norms = c == 0;
-                previous = ti;
+                previous = row;
                 bar_expect_bytes(&sm.full, (load_u ? 2 : 1) * BLOCK_BYTES + (load_norms ? (BM + BN) * 4 : 0));
                 if (load_u)
                     bulk_load(sm.u, pu + (static_cast<size_t>(ti) * chunks + c) * BLOCK_FLOATS,
@@ -362,7 +388,8 @@ unit_gram_kernel(const __grid_constant__ CUtensorMap out_map,   // unused withou
     float d[64], small[64];
     int parity = 0;
     for (int tile = first, n = 0; tile < last; ++tile, ++n) {
-        const int ti = tile / tiles_b, tj = tile % tiles_b;
+        const int tile_row = tile / tiles_b, tj = tile % tiles_b;
+        const int member = tile_row / tiles_a, ti = tile_row % tiles_a;
         for (int c = 0; c < chunks; ++c) {
             bar_wait(&sm.full, parity);
             parity ^= 1;
@@ -408,7 +435,7 @@ unit_gram_kernel(const __grid_constant__ CUtensorMap out_map,   // unused withou
                     const int row = row0 + r;
                     const int cg = col0 + col;
                     if (row < A) {
-                        float* o = out + static_cast<size_t>(row) * B + cg;
+                        float* o = out + (static_cast<size_t>(member) * A + row) * B + cg;
                         if (cg < B) o[0] = e0;
                         if (cg + 1 < B) o[1] = e1;
                     }
@@ -424,7 +451,8 @@ unit_gram_kernel(const __grid_constant__ CUtensorMap out_map,   // unused withou
 #pragma unroll
                 for (int box = 0; box < BN / BOX_COLS; ++box)
                     if (row0 < A && col0 + box * BOX_COLS < B)
-                        tma_store(&out_map, stage + box * BOX_FLOATS, col0 + box * BOX_COLS, row0);
+                        tma_store(&out_map, stage + box * BOX_FLOATS, col0 + box * BOX_COLS, row0,
+                                  member);
                 asm volatile("cp.async.bulk.commit_group;" ::: "memory");
             }
         }
@@ -456,15 +484,16 @@ int blocks_of(int rows) { return (rows + BM - 1) / BM; }
 
 }  // namespace
 
-// Packs u into scratch_u and v into scratch_v with their squared norms (v
-// skipped when the scratch is the same: u is v), then launches the gram
-// kernel, all on `stream`. Returns cudaGetLastError() as an int
-// (0 = cudaSuccess), or -1 when CUDA's tensor-map encoder is missing or
-// refuses the output. The caller allocates `out` and both scratch buffers,
-// keeps each scratch buffer to this stream's calls, and has checked the
-// shapes.
+// Packs each member of u into scratch_u and of v into scratch_v with their
+// squared norms (v skipped when the scratch is the same: u is v), then
+// launches the gram kernel over every member's tiles, all on `stream`.
+// Returns cudaGetLastError() as an int (0 = cudaSuccess), or -1 when CUDA's
+// tensor-map encoder is missing or refuses the output. The caller allocates
+// `out` and both scratch buffers, keeps each scratch buffer to this stream's
+// calls, and has checked the shapes: batch * ceil(A / 128) * ceil(B / 128)
+// tiles, and A * M and B * M, each below 2^31.
 extern "C" int unit_gram_f32(const float* u, const float* v, float* scratch_u, float* scratch_v,
-                             float* out, int A, int B, int M, cudaStream_t stream) {
+                             float* out, int batch, int A, int B, int M, cudaStream_t stream) {
     static int sms = 0;
     if (sms == 0) {
         int device = 0;
@@ -477,40 +506,43 @@ extern "C" int unit_gram_f32(const float* u, const float* v, float* scratch_u, f
     }
     const int chunks = (M + KC - 1) / KC;
     const int blocks_a = blocks_of(A), blocks_b = blocks_of(B);
-    float* nu = scratch_u + static_cast<size_t>(blocks_a) * chunks * BLOCK_FLOATS;
-    float* nv = scratch_v + static_cast<size_t>(blocks_b) * chunks * BLOCK_FLOATS;
-    pack_kernel<<<blocks_a, CONSUMER_WARPS * 32, 0, stream>>>(u, scratch_u, nu, A, M, chunks);
+    pack_kernel<<<batch * blocks_a, CONSUMER_WARPS * 32, 0, stream>>>(u, scratch_u, A, M, blocks_a,
+                                                                      chunks);
     if (scratch_v != scratch_u)
-        pack_kernel<<<blocks_b, CONSUMER_WARPS * 32, 0, stream>>>(v, scratch_v, nv, B, M, chunks);
+        pack_kernel<<<batch * blocks_b, CONSUMER_WARPS * 32, 0, stream>>>(v, scratch_v, B, M,
+                                                                          blocks_b, chunks);
 
     // TMA stores need 16-byte output rows; tiny outputs take the masked stores.
-    // The output's descriptor depends only on (out, A, B), and the caching
-    // allocator often hands back the same block, so the last one is kept:
-    // encoding it is a few microseconds of host time per call.
+    // The output's descriptor depends only on (out, batch, A, B), and the
+    // caching allocator often hands back the same block, so the last one is
+    // kept: encoding it is a few microseconds of host time per call.
     static thread_local CUtensorMap map = {};
     static thread_local const float* map_out = nullptr;
-    static thread_local int map_a = 0, map_b = 0;
+    static thread_local int map_batch = 0, map_a = 0, map_b = 0;
     const bool use_tma = B % 4 == 0 && B >= BN && A >= HALF_ROWS;
-    if (use_tma && (out != map_out || A != map_a || B != map_b)) {
+    if (use_tma && (out != map_out || batch != map_batch || A != map_a || B != map_b)) {
         const EncodeTiled encode = encode_tiled();
-        const cuuint64_t dims[2] = {static_cast<cuuint64_t>(B), static_cast<cuuint64_t>(A)};
-        const cuuint64_t strides[1] = {static_cast<cuuint64_t>(B) * sizeof(float)};
-        const cuuint32_t box[2] = {BOX_COLS, HALF_ROWS};
-        const cuuint32_t unit[2] = {1, 1};
+        const cuuint64_t dims[3] = {static_cast<cuuint64_t>(B), static_cast<cuuint64_t>(A),
+                                    static_cast<cuuint64_t>(batch)};
+        const cuuint64_t strides[2] = {static_cast<cuuint64_t>(B) * sizeof(float),
+                                       static_cast<cuuint64_t>(A) * B * sizeof(float)};
+        const cuuint32_t box[3] = {BOX_COLS, HALF_ROWS, 1};
+        const cuuint32_t unit[3] = {1, 1, 1};
         CUtensorMap fresh;
         if (encode == nullptr ||
-            encode(&fresh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims, strides, box, unit,
+            encode(&fresh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, out, dims, strides, box, unit,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
             return -1;
         map = fresh;
         map_out = out;
+        map_batch = batch;
         map_a = A;
         map_b = B;
     }
-    const int tiles = blocks_a * blocks_b;
+    const int tiles = batch * blocks_a * blocks_b;
     const int grid = tiles < sms ? tiles : sms;
     (use_tma ? unit_gram_kernel<true> : unit_gram_kernel<false>)<<<grid, THREADS, SHARED_BYTES, stream>>>(
-        map, scratch_u, scratch_v, nu, nv, out, A, B, chunks, blocks_b, tiles);
+        map, scratch_u, scratch_v, out, A, B, chunks, blocks_a, blocks_b, tiles);
     return static_cast<int>(cudaGetLastError());
 }

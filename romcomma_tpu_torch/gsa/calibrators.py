@@ -24,8 +24,9 @@ meta keys that selected them are refused (``TPU_ONLY_META``).
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,16 +34,12 @@ import torch
 from romcomma_tpu_torch.base.definitions import device
 from romcomma_tpu_torch.gsa.base import (Calibrator, Gaussian, diag_det, mean, rms, sos,
                                          sym_check)
+from romcomma_tpu_torch.ops.linalg import tri_solve
 
 #: meta keys of the JAX package's TPU tiers and routes; none has a meaning on
 #: the card, and each is refused by name rather than dropped.
 TPU_ONLY_META = ('intervals_mixed', 'intervals_acc_f64', 'fast_V', 'defer_V', 'host_paced',
                  'gsa_on_cpu', 'pack_device', 'psi_solver', 'psi_solver_factory')
-
-_PER_SLICE_ERRORS_LATER = (
-    'standard errors of a general (not single, prefix, suffix or empty) slice need the '
-    'per-slice error path (ClosedSobolWithError.marginalize), which is not ported to '
-    'romcomma_tpu_torch yet: ROADMAP "Still to port", the per-slice error path')
 
 #: romcomma_tpu cannot compute standard errors of a covariant model either: its
 #: error sweep solves the psi factors, N rows per output, against the (LN, LN)
@@ -352,20 +349,49 @@ class ClosedSobol(Calibrator):
         :meth:`marginalize`. Returns {'V','S'} with the slice axis LAST,
         ordered as ``slices``. Records the chunk count and loop time in
         ``last_v_sweep_timings``."""
-        specs, need = self._interval_specs(slices, self.M)
-        l, L, N, M = self.G.shape
-        chunk = self._intervals_chunk()
-        pack = self._intervals_pack()
-        zero = torch.zeros((M, l, L, l, L), dtype=self.G.dtype, device=self.G.device)
-        acc = (zero, zero, zero)
-        t0 = time.perf_counter()
-        for start in range(0, N, chunk):
-            acc = _intervals_step(need, pack, acc, self.G[:, :, start:start + chunk],
-                                  self.g0KY[:, :, start:start + chunk])
-        _synchronize(acc[0])
-        self.last_v_sweep_timings = {'chunks': -(-N // chunk), 'loop_s': time.perf_counter() - t0}
-        V = torch.stack(self._intervals_finalize(pack, acc, specs, slices), dim=-1)
+        (V,) = _intervals_pass([self], slices)
         return {'V': V, 'S': V / self.V[2][..., None]}
+
+
+def _intervals_pass(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[int, int], ...]'
+                    ) -> 'List[torch.Tensor]':
+    """The factorized V pass of one calibrator, or of several of one shape
+    and meta together: each chunk step then runs once for them all,
+    ``torch.func.vmap`` giving it a leading calibrator axis (romcomma_tpu
+    vmaps its whole GSA over the folds, ``calibrators.py:1506-1522``). The
+    automatic chunk shrinks by the number of calibrators, so the device holds
+    the planes of one (``marginalize_intervals_stacked``'s rule, ``:760-766``);
+    an explicit meta['n_chunk'] is kept. Returns each calibrator's V (slice
+    axis last) and records the pass's chunk count and loop time in each
+    one's ``last_v_sweep_timings``."""
+    cal = cals[0]
+    specs, need = cal._interval_specs(slices, cal.M)
+    l, L, N, M = cal.G.shape
+    chunk = cal._intervals_chunk()
+    if len(cals) > 1 and cal.meta.get('n_chunk', None) is None:
+        chunk = max(64, chunk // len(cals))
+    packs = [c._intervals_pack() for c in cals]
+    zero = torch.zeros((len(cals), M, l, L, l, L), dtype=cal.G.dtype, device=cal.G.device)
+    if len(cals) == 1:
+        pack, G, g, acc = packs[0], cal.G, cal.g0KY, (zero[0],) * 3
+
+        def step(pack, acc, Gq_c, gq_c):
+            return _intervals_step(need, pack, acc, Gq_c, gq_c)
+    else:
+        pack = {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+        G, g, acc = torch.stack([c.G for c in cals]), torch.stack([c.g0KY for c in cals]), (zero,) * 3
+        step = torch.func.vmap(lambda *args: _intervals_step(need, *args))
+    t0 = time.perf_counter()
+    for start in range(0, N, chunk):
+        acc = step(pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk])
+    _synchronize(acc[0])
+    timings = {'chunks': -(-N // chunk), 'loop_s': time.perf_counter() - t0}
+    Vs = []
+    for i, (c, p) in enumerate(zip(cals, packs)):
+        c.last_v_sweep_timings = dict(timings)
+        acc_i = acc if len(cals) == 1 else tuple(a[i] for a in acc)
+        Vs.append(torch.stack(c._intervals_finalize(p, acc_i, specs, slices), dim=-1))
+    return Vs
 
 
 def _intervals_step(need: Dict[str, bool], pack: Dict[str, torch.Tensor], acc, Gq_c, gq_c):
@@ -461,6 +487,23 @@ class ClosedSobolWithError(ClosedSobol):
         return (torch.einsum('LNjjJM -> LNjJM', result)[..., None, :, :]
                 if rank_eq.j == 'i' else result)
 
+    def _equatedRanksGaussian(self, mean: torch.Tensor, variance: torch.Tensor,
+                              ordinate: torch.Tensor, rank_eqs) -> List[Gaussian]:
+        """(calibrators.py:193-212)"""
+        result = []
+        N_axis = 3
+        for rank_eq in rank_eqs:
+            eq_ranks_variance = self._equateRanks(torch.unsqueeze(variance, N_axis),
+                                                  rank_eq)[..., None, :]
+            eq_ranks_mean = self._equateRanks(mean, rank_eq)[..., None, :]
+            shape = (tuple(eq_ranks_mean.shape[:-2]) + tuple(ordinate.shape[-2:])
+                     if ordinate.dim() > 2 else None)
+            eq_ranks_mean = (eq_ranks_mean if shape is None
+                             else torch.broadcast_to(eq_ranks_mean, shape)) - ordinate
+            result += [Gaussian(mean=eq_ranks_mean, variance=eq_ranks_variance,
+                                is_variance_diagonal=True, LBunch=10000)]
+        return result
+
     def _omega_mean_variance(self, mp, G: torch.Tensor, Phi: torch.Tensor,
                              Upsilon: torch.Tensor):
         """Omega-family mean/variance tensors (reference calibrators.py:
@@ -485,6 +528,14 @@ class ClosedSobolWithError(ClosedSobol):
             mean = mean[..., mp[0]:mp[1]]
         return mean, variance
 
+    def _OmegaGaussian(self, mp, G: torch.Tensor, Phi: torch.Tensor, Upsilon: torch.Tensor,
+                       rank_eqs) -> List[Gaussian]:
+        """The Omega integral family (calibrators.py:214-242)."""
+        mean, variance = self._omega_mean_variance(mp, G, Phi, Upsilon)
+        if mp is not self.Ms:
+            G = G[..., mp[0]:mp[1]]
+        return self._equatedRanksGaussian(mean, variance, G[:, None, ...], rank_eqs)
+
     def _upsilon_mean_variance(self, G: torch.Tensor, Phi: torch.Tensor,
                                Upsilon: torch.Tensor):
         """Upsilon-family mean/variance tensors (reference calibrators.py:
@@ -494,6 +545,78 @@ class ClosedSobolWithError(ClosedSobol):
         variance = 1 - torch.einsum('ikM, lLM, ikM -> liLkM', Upsilon_cho, Phi,
                                     Upsilon_cho)[..., None, :, None, :]
         return mean, variance
+
+    def _UpsilonGaussian(self, G: torch.Tensor, Phi: torch.Tensor, Upsilon: torch.Tensor,
+                         rank_eqs) -> List[Gaussian]:
+        """The Upsilon integral family (calibrators.py:244-257)."""
+        mean, variance = self._upsilon_mean_variance(G, Phi, Upsilon)
+        return self._equatedRanksGaussian(mean, variance,
+                                          torch.zeros((), dtype=G.dtype, device=G.device),
+                                          rank_eqs)
+
+    def _mu_phi_mu(self, GGaussian: Gaussian, UpsilonGaussians: List[Gaussian],
+                   OmegaGaussians: List[Gaussian], rank_eqs) -> torch.Tensor:
+        """E_m E_mp (mu[m] phi[m][mp] mu[mp])  (calibrators.py:259-288)."""
+        GGaussian = GGaussian.expand_dims([2])
+        mu_phi_mu = 0.0
+        for i, rank_eq in enumerate(rank_eqs):
+            OmegaGaussians[i] = OmegaGaussians[i] / GGaussian
+            OmegaGaussians[i].exponent = (OmegaGaussians[i].exponent
+                                          + UpsilonGaussians[i].exponent)
+            if UpsilonGaussians[i].cho_diag.shape[-1] == GGaussian.cho_diag.shape[-1]:
+                OmegaGaussians[i].cho_diag = (OmegaGaussians[i].cho_diag
+                                              * UpsilonGaussians[i].cho_diag)
+            else:
+                OmegaGaussians[i].cho_diag = (diag_det(OmegaGaussians[i].cho_diag)
+                                              * diag_det(UpsilonGaussians[i].cho_diag))[..., None]
+            if rank_eq in self.RANK_EQUATIONS.MIXED:
+                result = torch.einsum('kLN, LNjkJn, jJn -> jk', self.g0KY,
+                                      OmegaGaussians[i].pdf, self.g0KY)
+                mu_phi_mu = mu_phi_mu + torch.einsum('k, jk -> jk',
+                                                     self.mu_phi_mu['pre-factor'], result)
+                mu_phi_mu = _set_diag(mu_phi_mu, 2 * _diag_part(mu_phi_mu))
+            elif rank_eq.l == 'k' and rank_eq.i == 'j':
+                result = torch.einsum('jLN, LNjkJn, jJn -> j', self.g0KY,
+                                      OmegaGaussians[i].pdf, self.g0KY)
+                mu_phi_mu = mu_phi_mu + torch.diag(torch.einsum(
+                    'j, j -> j', self.mu_phi_mu['pre-factor'], result))
+            else:
+                result = torch.einsum('jLN, LNjkJn, jJn -> jk', self.g0KY,
+                                      OmegaGaussians[i].pdf, self.g0KY)
+                mu_phi_mu = mu_phi_mu + torch.einsum('k, jk -> jk',
+                                                     self.mu_phi_mu['pre-factor'], result)
+        return mu_phi_mu
+
+    def _psi_ratio(self, G: torch.Tensor, Phi: torch.Tensor, GGaussian: Gaussian) -> Gaussian:
+        """The psi Gaussian RATIO of a slice: the pdf whose contraction
+        (:meth:`_psi_contract`) yields the psi factor."""
+        D = Phi[..., None, None, :] - torch.einsum('lLM, iIM, lLM -> lLiIM', Phi, Phi, Phi)
+        mean = torch.einsum('lLM, iInM -> lLiInM', Phi, G)
+        mean = mean[:, :, None, ...] - G[..., None, None, None, :]
+        gaussian = Gaussian(mean=mean, variance=D, is_variance_diagonal=True, LBunch=2)
+        return gaussian / GGaussian.expand_dims([-1, -2, -3])
+
+    def _psi_factor(self, G: torch.Tensor, Phi: torch.Tensor, GGaussian: Gaussian
+                    ) -> torch.Tensor:
+        """The psi factor of E_m E_mp (mu psi mu) (calibrators.py:290-309)."""
+        return self._psi_contract(self._psi_ratio(G, Phi, GGaussian))
+
+    def _psi_contract(self, gaussian: Gaussian) -> torch.Tensor:
+        """Contract the psi Gaussian ratio with g0KY/g0 and solve vs K_cho."""
+        factor = torch.einsum('lLN, iIn, lLNiIn -> liIn', self.g0KY, self.g0, gaussian.pdf)
+        if self.K_cho.dim() == 2 and factor.shape[-2] == 1:
+            inner = torch.einsum('liIN -> lNi', factor)
+            factor = torch.einsum('lNiI -> liIN', torch.diag_embed(inner))
+        factor = factor.reshape(list(factor.shape[:-2]) + [-1, 1])
+        return torch.squeeze(tri_solve(self.K_cho, factor), -1)
+
+    def _mu_psi_mu(self, psi_factor: torch.Tensor, rank_eqs) -> torch.Tensor:
+        """(calibrators.py:311-322)"""
+        first_psi_factor = (self.psi_factor if rank_eqs is self.RANK_EQUATIONS.MIXED
+                            else psi_factor)
+        first_ein = 'liS' if rank_eqs is self.RANK_EQUATIONS.DIAGONAL else 'iiS'
+        result = torch.einsum(f'{first_ein}, liS -> li', first_psi_factor, psi_factor)
+        return _set_diag(result, 2 * _diag_part(result))
 
     def _W(self, mu_phi_mu: torch.Tensor, mu_psi_mu: torch.Tensor) -> torch.Tensor:
         W = mu_phi_mu - mu_psi_mu
@@ -512,8 +635,43 @@ class ClosedSobolWithError(ClosedSobol):
         Qs = Wmm - 2 * Vm * WMm / self.V[1] + Vm * Vm * Q
         return torch.sqrt(torch.abs(Qs) / self.V[4])
 
+    def _families(self, m: Tuple[int, int]):
+        """The error-integral families of slice ``m``: (GGaussian, psi ratio,
+        Upsilon Gaussians per rank family, Omega Gaussians per rank family,
+        rank families). The per-slice path, for general slices; canonical
+        intervals go through the factorized sweep (gsa/factorized_errors.py)."""
+        G, Phi, Upsilon = tuple(tensor[..., m[0]:m[1]]
+                                for tensor in (self.G, self.Phi, self.Upsilon))
+        GGaussian = Gaussian(G, Phi, is_variance_diagonal=True, LBunch=2)
+        psi_ratio = self._psi_ratio(G, Phi, GGaussian)
+        families = ((self.RANK_EQUATIONS.DIAGONAL,) if self.meta['is_T_partial']
+                    else tuple(self.RANK_EQUATIONS))
+        ups = tuple(self._UpsilonGaussian(G, Phi, Upsilon, req) for req in families)
+        oms = tuple(self._OmegaGaussian(m, self.G, self.Phi, self.Upsilon, req)
+                    for req in families)
+        return GGaussian, psi_ratio, ups, oms, families
+
+    def _error_results(self, bundle, Vm: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """W and T from a family bundle (the tail of reference
+        calibrators.py:348-373). ``Vm`` is used only when is_T_partial is
+        False (the V-dependent T correction)."""
+        GGaussian, psi_ratio, ups_fams, oms_fams, families = bundle
+        psi_factor = self._psi_contract(psi_ratio)
+        Ws = [self._W(self._mu_phi_mu(GGaussian, list(ups), [copy.copy(o) for o in oms], req),
+                      self._mu_psi_mu(psi_factor, req))
+              for ups, oms, req in zip(ups_fams, oms_fams, families)]
+        if self.meta['is_T_partial']:
+            return {'W': Ws[0], 'T': self._T(Ws[0])}
+        Wmm, WMm = Ws                              # (DIAGONAL, MIXED) order
+        return {'W': Wmm, 'T': self._T(Wmm, WMm, Vm)}
+
     def marginalize(self, m: Tuple[int, int]) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError(_PER_SLICE_ERRORS_LATER)
+        """V, S, W and T of the slice [m[0]:m[1]], slice by slice
+        (calibrators.py:348-373): O(N^2 M) tensors of every family at once,
+        the oracle of the factorized sweep and the path of general slices."""
+        result = super().marginalize(m)
+        result |= self._error_results(self._families(m), result['V'])
+        return result
 
     def marginalize_intervals(self, slices: 'Tuple[Tuple[int, int], ...]'
                               ) -> Dict[str, torch.Tensor]:
@@ -521,27 +679,13 @@ class ClosedSobolWithError(ClosedSobol):
 
         V/S come from the parent's O(N^2 M) pass. The W/T error integrals
         factorize the same way and are computed by the chunked sweep in
-        :mod:`romcomma_tpu_torch.gsa.factorized_errors`. Records the split of
-        its time in ``last_interval_timings``: ``v_pass_s`` and
-        ``wt_sweep_s``, then the V sweep's ``v_chunks``/``v_loop_s`` and
-        the error sweep's ``e_prep_s``/``e_chunks``/``e_loop_s``/``e_solve_s``."""
-        from romcomma_tpu_torch.gsa import factorized_errors
-        slices = tuple(slices)
-        specs = [self._classify_interval(m, self.M) for m in slices]
-        if any(k == 'general' for k, _ in specs):
-            raise NotImplementedError(_PER_SLICE_ERRORS_LATER)
-        t0 = time.perf_counter()
-        base = super().marginalize_intervals(slices)
-        _synchronize(base['V'])
-        timings = {'v_pass_s': time.perf_counter() - t0}
-        timings.update({f'v_{k}': v for k, v in self.last_v_sweep_timings.items()})
-        t0 = time.perf_counter()
-        base |= factorized_errors.intervals(self, slices, specs, base['V'])
-        _synchronize(base['V'])
-        timings['wt_sweep_s'] = time.perf_counter() - t0
-        timings.update({f'e_{k}': v for k, v in self.last_error_sweep_timings.items()})
-        self.last_interval_timings = timings
-        return base
+        :mod:`romcomma_tpu_torch.gsa.factorized_errors`. A set of slices with
+        a general one falls back to per-slice evaluation (:meth:`marginalize`),
+        as romcomma_tpu's does (calibrators.py:1039-1046). Records the split
+        of its time in ``last_interval_timings``: ``v_pass_s`` and
+        ``wt_sweep_s``, then the V sweep's ``v_chunks``/``v_loop_s`` and the
+        error sweep's ``e_prep_s``/``e_chunks``/``e_loop_s``/``e_solve_s``."""
+        return marginalize_intervals_folds([self], slices)[0]
 
     def _calibrate(self):
         """(calibrators.py:375-402). The full-interval error integrals
@@ -719,6 +863,54 @@ def _is_F_diagonal(gp) -> bool:
     return not gp_options.pop('kernel', {}).pop('covariance', False)
 
 
+def marginalize_intervals_folds(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[int, int], ...]'
+                                ) -> 'List[Dict[str, torch.Tensor]]':
+    """``marginalize_intervals`` of several calibrators of one class, shape
+    and meta (the equal-shape folds of a repository) together: the V pass and
+    the W/T sweep each run their chunk steps once for them all (see
+    :func:`_intervals_pass`), the psi solves each against its own K_cho.
+    Returns one result per calibrator, as its own ``marginalize_intervals``
+    would, and records the group's timings in each one's
+    ``last_interval_timings``. A set of slices with a general one goes
+    slice by slice, calibrator by calibrator."""
+    from romcomma_tpu_torch.gsa import factorized_errors
+    slices = tuple(slices)
+    cal = cals[0]
+    specs = [cal._classify_interval(m, cal.M) for m in slices]
+    if any(k == 'general' for k, _ in specs):
+        results = []
+        for c in cals:
+            if isinstance(c, ClosedSobolWithError):
+                # romcomma_tpu falls back to the per-slice path for every
+                # slice of a set with a general one (calibrators.py:1039-1046).
+                outs = [c.marginalize(m) for m in slices]
+                results.append({key: torch.stack([out[key] for out in outs], dim=-1)
+                                for key in outs[0]})
+            else:
+                results.append(ClosedSobol.marginalize_intervals(c, slices))
+        return results
+    if not isinstance(cal, ClosedSobolWithError):
+        return [{'V': V, 'S': V / c.V[2][..., None]}
+                for c, V in zip(cals, _intervals_pass(cals, slices))]
+    t0 = time.perf_counter()
+    Vs = _intervals_pass(cals, slices)
+    _synchronize(Vs[0])
+    v_pass_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    errors = factorized_errors.intervals_folds(cals, slices, specs, Vs)
+    _synchronize(Vs[0])
+    wt_sweep_s = time.perf_counter() - t0
+    results = []
+    for c, V, error in zip(cals, Vs, errors):
+        timings = {'v_pass_s': v_pass_s}
+        timings.update({f'v_{k}': v for k, v in c.last_v_sweep_timings.items()})
+        timings['wt_sweep_s'] = wt_sweep_s
+        timings.update({f'e_{k}': v for k, v in c.last_error_sweep_timings.items()})
+        c.last_interval_timings = timings
+        results.append({'V': V, 'S': V / c.V[2][..., None]} | error)
+    return results
+
+
 def marginalize_all(gp, slices: Tuple[Tuple[int, int], ...], is_error_calculated: bool, **meta):
     """Run a whole GSA kind: calibrator construction plus every m-slice
     marginalization. See :func:`marginalize_all_kinds`, of which this is the
@@ -737,23 +929,38 @@ def marginalize_all_kinds(gp, kind_slices: 'Dict[str, Tuple[Tuple[int, int], ...
     Returns ({kind: results}, extras): results[key] has the slice axis last;
     extras = {'V0','S'[,'T']}, the quantities Sobol._post_calibrate needs.
     """
-    if is_error_calculated and gp.is_covariant:
+    return marginalize_all_kinds_folds([gp], kind_slices, is_error_calculated, **meta)[0]
+
+
+def marginalize_all_kinds_folds(gps, kind_slices: 'Dict[str, Tuple[Tuple[int, int], ...]]',
+                                is_error_calculated: bool, **meta) -> list:
+    """:func:`marginalize_all_kinds` of the GPs of several equal-shape (N, M,
+    L) folds at once: one calibrator each, and one pass over all slices of
+    all kinds for them all (:func:`marginalize_intervals_folds`), the port of
+    romcomma_tpu's vmapped ``marginalize_all_kinds_folds``
+    (calibrators.py:1465-1525). F's diagonality is the first GP's, as there.
+    Returns one (by_kind, extras) per GP, in the single-fold function's
+    structure."""
+    if is_error_calculated and any(gp.is_covariant for gp in gps):
         raise NotImplementedError(COVARIANT_ERRORS_UNSUPPORTED)
     cls = ClosedSobolWithError if is_error_calculated else ClosedSobol
     meta = {k: v for k, v in meta.items() if k not in ('folder', 'm', 'M')}
     is_F_diagonal = meta.pop('is_F_diagonal', None)
     if is_F_diagonal is None:
-        is_F_diagonal = _is_F_diagonal(gp)
-    arrays = ClosedSobol.gather_arrays(gp, need_K_cho=is_error_calculated)
-    cal = cls.from_arrays(is_F_diagonal=is_F_diagonal, L=gp.L, M=gp.M, N=gp.N, **meta, **arrays)
+        is_F_diagonal = _is_F_diagonal(gps[0])
+    cals = [cls.from_arrays(is_F_diagonal=is_F_diagonal, L=gp.L, M=gp.M, N=gp.N, **meta,
+                            **ClosedSobol.gather_arrays(gp, need_K_cho=is_error_calculated))
+            for gp in gps]
     flat = [s for slices in kind_slices.values() for s in slices]
-    out = cal.marginalize_intervals(tuple(flat))
-    by_kind, start = {}, 0
-    for kind, slices in kind_slices.items():
-        stop = start + len(slices)
-        by_kind[kind] = {k: v[..., start:stop] for k, v in out.items()}
-        start = stop
-    extras = {'V0': cal.V[0], 'S': cal.S}
-    if is_error_calculated and not cal.meta['is_T_partial']:
-        extras['T'] = cal.T
-    return by_kind, extras
+    results = []
+    for cal, out in zip(cals, marginalize_intervals_folds(cals, tuple(flat))):
+        by_kind, start = {}, 0
+        for kind, slices in kind_slices.items():
+            stop = start + len(slices)
+            by_kind[kind] = {k: v[..., start:stop] for k, v in out.items()}
+            start = stop
+        extras = {'V0': cal.V[0], 'S': cal.S}
+        if is_error_calculated and not cal.meta['is_T_partial']:
+            extras['T'] = cal.T
+        results.append((by_kind, extras))
+    return results

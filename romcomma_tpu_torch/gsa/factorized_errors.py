@@ -29,13 +29,17 @@ integrals vanish identically: W = 0, T = 0.
 Only the diagonal-F case exists here: ``ClosedSobolWithError._calibrate``
 rejects non-diagonal F (matching the reference's instability note). The
 sweep runs on one device in float64, with the chunk loop and the sweeps over
-dims as Python loops of torch ops.
+dims as Python loops of torch ops. Several calibrators of one shape (the
+equal-shape folds of a repository) sweep together: ``torch.func.vmap`` gives
+each chunk step a leading calibrator axis, so one step's ops run once for
+them all, as romcomma_tpu vmaps its whole GSA over the folds; each keeps its
+own psi solve against its own K_cho.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import torch
 
@@ -269,16 +273,45 @@ def _run_chunk(C, layout, kinds, prefix_full: bool, q: slice) -> Dict[str, tuple
     return out
 
 
+def _stack(trees: Sequence):
+    """Leaf-wise torch.stack of equal nested dicts/tuples of tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: _stack([tree[key] for tree in trees]) for key in first}
+    if isinstance(first, tuple):
+        return tuple(_stack(list(leaves)) for leaves in zip(*trees))
+    return torch.stack(list(trees))
+
+
+def _unstack(tree, i: int):
+    """Member i of a tree that _stack made."""
+    if isinstance(tree, dict):
+        return {key: _unstack(value, i) for key, value in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_unstack(value, i) for value in tree)
+    return tree[i]
+
+
 def error_scan(cal, need: Dict[str, bool]) -> Dict[str, Any]:
-    """Run the factorized error sweep.
+    """Run the factorized error sweep of one calibrator: error_scan_folds's."""
+    return error_scan_folds([cal], need)[0]
+
+
+def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, Any]]:
+    """Run the factorized error sweep of one calibrator, or of several of one
+    shape and meta together (each chunk step vmapped over them).
 
     ``need`` flags which kinds to emit ('single'/'suffix'; 'prefix' always
     runs: its (0, M) column is the full-interval psi factor and MIXED-W
-    source). Returns {'layout', 'quads': {kind: [(M, j[, k]) per member]},
-    'psi': {kind: (M, l, i, N)}} with determinants applied and the psi
-    factors K-solved (reference calibrators.py:290-322 semantics). Records
-    ``prep_s``, ``chunks``, ``loop_s`` and ``solve_s`` in the calibrator's
+    source). Returns per calibrator {'layout', 'quads': {kind: [(M, j[, k])
+    per member]}, 'psi': {kind: (M, l, i, N)}} with determinants applied and
+    the psi factors K-solved, each against its own K_cho (reference
+    calibrators.py:290-322 semantics). The automatic chunk shrinks by the
+    number of calibrators, so the device holds the planes of one; an
+    explicit meta['n_chunk'] is kept. Records ``prep_s``, ``chunks``,
+    ``loop_s`` and ``solve_s`` (of them all) in each calibrator's
     ``last_error_sweep_timings``."""
+    cal = cals[0]
     kinds = tuple(k for k in KINDS if need.get(k) or k == 'prefix')
     # Per-dim prefix COLUMNS are consumed only by CLOSED-kind slices; when
     # none are requested, prefix is emitted once, from the final carry.
@@ -286,33 +319,54 @@ def error_scan(cal, need: Dict[str, bool]) -> Dict[str, Any]:
     layout = _member_layout(cal)
     N = cal.N
     chunk = _chunk_size(cal, len(layout))
+    if len(cals) > 1 and cal.meta.get('n_chunk', None) is None:
+        chunk = max(64, chunk // len(cals))
     timings = {}
     t0 = time.perf_counter()
-    C = _prep(cal, kinds, prefix_full)
-    _synchronize(C['g'])
+    Cs = [_prep(c, kinds, prefix_full) for c in cals]
+    _synchronize(Cs[0]['g'])
     timings['prep_s'] = time.perf_counter() - t0
+
+    def run(C, q: slice):
+        return _run_chunk(C, layout, kinds, prefix_full, q)
+
+    if len(cals) == 1:
+        C, step = Cs[0], run
+    else:
+        C = _stack(Cs)
+
+        def step(C, q: slice):
+            return torch.func.vmap(lambda C_: run(C_, q))(C)
+
     t0 = time.perf_counter()
     quads, psi_parts = None, {k: [] for k in kinds}
     for start in range(0, N, chunk):
-        out = _run_chunk(C, layout, kinds, prefix_full, slice(start, start + chunk))
+        out = step(C, slice(start, start + chunk))
         quads = ({k: out[k][0] for k in kinds} if quads is None else
                  {k: tuple(q0 + q1 for q0, q1 in zip(quads[k], out[k][0])) for k in kinds})
         for k in kinds:
             psi_parts[k].append(out[k][1])
     psi = {k: torch.cat(psi_parts[k], dim=-1) for k in kinds}
-    _synchronize(C['g'])
+    _synchronize(Cs[0]['g'])
     timings.update(chunks=-(-N // chunk), loop_s=time.perf_counter() - t0)
 
-    # Determinants, then the K_cho solve of the psi factors.
+    # Determinants, then the K_cho solve of the psi factors, fold by fold.
     t0 = time.perf_counter()
-    invd, invd_psi = C['invd'], C['invd_psi']
-    quads = {k: tuple(q * (invd[k][r] if layout[r]['out'] == 'jk' else invd[k][r][..., 0])
-                      for r, q in enumerate(quads[k])) for k in kinds}
-    psi = {k: _psi_solve(cal.K_cho, psi[k] * invd_psi[k][..., None]) for k in kinds}
-    _synchronize(C['g'])
+    sweeps = []
+    for i, (c, C) in enumerate(zip(cals, Cs)):
+        quads_i, psi_i = (quads, psi) if len(cals) == 1 else (_unstack(quads, i), _unstack(psi, i))
+        invd, invd_psi = C['invd'], C['invd_psi']
+        sweeps.append({'layout': layout,
+                       'quads': {k: tuple(q * (invd[k][r] if layout[r]['out'] == 'jk'
+                                               else invd[k][r][..., 0])
+                                          for r, q in enumerate(quads_i[k])) for k in kinds},
+                       'psi': {k: _psi_solve(c.K_cho, psi_i[k] * invd_psi[k][..., None])
+                               for k in kinds}})
+    _synchronize(Cs[0]['g'])
     timings['solve_s'] = time.perf_counter() - t0
-    cal.last_error_sweep_timings = timings
-    return {'layout': layout, 'quads': quads, 'psi': psi}
+    for c in cals:
+        c.last_error_sweep_timings = dict(timings)
+    return sweeps
 
 
 def _psi_solve(K_cho: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
@@ -402,6 +456,14 @@ def intervals(cal, slices, kinds_idx, V_cols):
     """
     need = _need_of(cal, kinds_idx)
     return _assemble(cal, error_scan(cal, need), need, kinds_idx, V_cols)
+
+
+def intervals_folds(cals: Sequence, slices, kinds_idx, V_cols: Sequence) -> List[Dict]:
+    """:func:`intervals` of several calibrators of one shape and meta, their
+    sweeps run together; ``V_cols`` holds each one's V columns."""
+    need = _need_of(cals[0], kinds_idx)
+    return [_assemble(cal, sweep, need, kinds_idx, V)
+            for cal, sweep, V in zip(cals, error_scan_folds(cals, need), V_cols)]
 
 
 def _need_of(cal, kinds_idx) -> Dict[str, bool]:

@@ -7,7 +7,9 @@ Counterpart of ``romcomma_tpu/models/gp.py``, with its two code paths:
     output axis, the grams and factorizations here carry the L axis as a
     batch dimension, and the L calibrations are independent L-BFGS-B descents
     run one after the other (the reference's per-GP scipy optimizations,
-    gpr/models.py:359-361).
+    gpr/models.py:359-361). ``calibrate_variant_folds`` runs the K*L descents
+    of K equal-shape folds in lockstep instead, each evaluation of them all
+    one batched ``ExactLML`` (romcomma_tpu vmaps its descent over the folds).
   - covariant: one (LN,LN) system with full (L,L) signal and noise
     covariances (reference math: gpf/models.py:73-82, gpf/likelihoods.py:64-67).
 
@@ -19,7 +21,7 @@ Shapes follow the reference conventions, so the GSA layer consumes
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -32,9 +34,34 @@ from romcomma_tpu_torch.ops.gram import (rbf_gram, rbf_gram_covariant, rbf_gram_
 from romcomma_tpu_torch.ops.linalg import add_diag, cho_solve, cholesky, mvn_logpdf, tri_solve
 
 
+def _lml_forward(K: torch.Tensor, y: torch.Tensor, N: int):
+    """(value, chol, alpha) of one output from its noisy gram K (N, N)."""
+    chol = cholesky(K)
+    z = tri_solve(chol, y.reshape(N, 1))
+    value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
+             - 0.5 * N * math.log(2.0 * math.pi))
+    value = torch.where(torch.isfinite(value), value, -torch.inf)
+    return value, chol, tri_solve(chol, z, trans=True)
+
+
+def _lml_backward(ls, s2, noise, x, K, chol, alpha):
+    """(dls, ds2, dnoise) of one output's LML: ExactLML's analytic backward."""
+    W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])   # 2 Bbar
+    W_diagonal = W.diagonal().clone()
+    dnoise = 0.5 * torch.sum(W_diagonal)
+    W.mul_(K).diagonal().sub_(noise * W_diagonal)                            # 2 Bbar * Knn
+    ds2 = 0.5 * torch.sum(W) / s2
+    xx = x * x
+    term = xx.T @ torch.sum(W, dim=1) + xx.T @ torch.sum(W, dim=0) - 2.0 * torch.sum(
+        x * (W @ x), dim=0)
+    dls = (0.5 * term / torch.broadcast_to(ls, (x.shape[1],)) ** 3).sum_to_size(ls.shape)
+    return dls, ds2.reshape(s2.shape), dnoise.reshape(noise.shape)
+
+
 class ExactLML(torch.autograd.Function):
-    """lml(ls, s2, noise) of one output's ARD-RBF GP, with the analytic
-    backward of romcomma_tpu's ``DistributedGP._build_lml`` custom VJP:
+    """lml(ls, s2, noise) of one output's ARD-RBF GP, or of each of a batch of
+    independent ones, with the analytic backward of romcomma_tpu's
+    ``DistributedGP._build_lml`` custom VJP:
 
         dLML/dK = Bbar = (alpha alpha^T - K^-1) / 2,
         dLML/ds2 = sum(Bbar * Knn) / s2,    dLML/dnoise = tr(Bbar),
@@ -42,44 +69,51 @@ class ExactLML(torch.autograd.Function):
 
     with Knn the signal gram, the last from row and column sums and one
     (N, N) @ (N, M) product, so no (N, N, M) tensor is built. The backward
-    forms K^-1 with ``cholesky_inverse`` and holds three (N, N) buffers: the
-    noisy gram, its factor and K^-1. Both variant routes evaluate their LML
-    here: ``lml_single`` (the small route) and ``DistributedGP.lml`` (the
-    large route).
+    forms K^-1 with ``cholesky_inverse`` and holds three (N, N) buffers per
+    output: the noisy gram, its factor and K^-1. Both variant routes evaluate
+    their LML here: ``lml_single`` (the small route), ``DistributedGP.lml``
+    (the large route) and ``calibrate_variant_folds`` (a fold group).
 
-    Forward inputs: ls (M,) or broadcastable to it, s2 and noise scalars, x
-    (N, M), y (N,) or (N, 1), all of one dtype on one device. The value is
-    -inf where the factorization breaks down, so a minimizer of -lml backs
-    off, as romcomma_tpu's does."""
+    Forward inputs, one GP: ls (M,) or broadcastable to it, s2 and noise
+    scalars, x (N, M), y (N,) or (N, 1). A batch of B: ls (B, M) or (B, 1), s2
+    and noise (B,), x (B, N, M), y (B, N); the value is (B,). All of one
+    dtype on one device. A batch's gram is one launch of the unit-gram kernel
+    (a float32 CUDA build); each member is then factorized and differentiated
+    on its own, as one GP is: torch's batched Cholesky and inverse (MAGMA)
+    are slower on the card at these orders than one matrix at a time (PERF.md,
+    PR 8), and each member's arithmetic is the single GP's: a member whose x
+    has the layout the GP's own x has rounds as it does alone, so a descent
+    takes the same steps alone and in a batch. The value is -inf where the
+    factorization breaks down, member by member, so a minimizer of -lml backs
+    off, as romcomma_tpu's does; the other members stay finite."""
 
     @staticmethod
     def forward(ctx, ls, s2, noise, x, y):
-        N = x.shape[0]
-        K = rbf_gram(x, x, ls, s2)
-        K.diagonal().add_(noise)
-        chol = cholesky(K)
-        z = tri_solve(chol, y.reshape(N, 1))
-        value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
-                 - 0.5 * N * math.log(2.0 * math.pi))
-        value = torch.where(torch.isfinite(value), value, -torch.inf)
-        alpha = tri_solve(chol, z, trans=True)
-        ctx.save_for_backward(ls, s2, noise, x, K, chol, alpha)
-        return value
+        ctx.batched = x.dim() == 3
+        N = x.shape[-2]
+        if not ctx.batched:
+            K = rbf_gram(x, x, ls, s2)
+            K.diagonal().add_(noise)
+            value, chol, alpha = _lml_forward(K, y, N)
+            ctx.save_for_backward(ls, s2, noise, x, K, chol, alpha)
+            return value
+        K = rbf_gram_variant(x, x, torch.broadcast_to(ls, (x.shape[0], x.shape[2])), s2)
+        K.diagonal(dim1=-2, dim2=-1).add_(noise[:, None])
+        values, chols, alphas = zip(*(_lml_forward(K[b], y[b], N) for b in range(x.shape[0])))
+        ctx.save_for_backward(ls, s2, noise, x, K, *chols, *alphas)
+        return torch.stack(values)
 
     @staticmethod
     def backward(ctx, gbar):
-        ls, s2, noise, x, K, chol, alpha = ctx.saved_tensors
-        W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])   # 2 Bbar
-        W_diagonal = W.diagonal().clone()
-        dnoise = 0.5 * torch.sum(W_diagonal)
-        W.mul_(K).diagonal().sub_(noise * W_diagonal)                            # 2 Bbar * Knn
-        ds2 = 0.5 * torch.sum(W) / s2
-        xx = x * x
-        term = xx.T @ torch.sum(W, dim=1) + xx.T @ torch.sum(W, dim=0) - 2.0 * torch.sum(
-            x * (W @ x), dim=0)
-        dls = (0.5 * term / torch.broadcast_to(ls, (x.shape[1],)) ** 3).sum_to_size(ls.shape)
-        return (gbar * dls, (gbar * ds2).reshape(s2.shape), (gbar * dnoise).reshape(noise.shape),
-                None, None)
+        ls, s2, noise, x, K, *factors = ctx.saved_tensors
+        if not ctx.batched:
+            return (*(gbar * g for g in _lml_backward(ls, s2, noise, x, K, *factors)),
+                    None, None)
+        B = x.shape[0]
+        grads = [_lml_backward(ls[b], s2[b], noise[b], x[b], K[b], factors[b], factors[B + b])
+                 for b in range(B)]
+        return (*(gbar.reshape((B,) + (1,) * (g[0].dim())) * torch.stack(g)
+                  for g in zip(*grads)), None, None)
 
 
 def lml_single(raw: VariantParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -131,6 +165,46 @@ def calibrate_variant(raw: VariantParams, mask: Dict[str, float], x: torch.Tenso
     lml = torch.tensor([value for _, value, _ in results], dtype=torch.float64)
     iterations = torch.tensor([its for _, _, its in results])
     return raw_opt, lml, iterations
+
+
+def calibrate_variant_folds(raws: VariantParams, mask: Dict[str, float], xs: torch.Tensor,
+                            ys: torch.Tensor, maxiter: int = 5000, gtol: float = 1e-16,
+                            ftol: float = lbfgs.SCIPY_FTOL
+                            ) -> Tuple[VariantParams, torch.Tensor, torch.Tensor, List[List[str]]]:
+    """K equal-shape folds calibrated together: the K*L descents that
+    ``calibrate_variant`` makes fold by fold, in lockstep
+    (``lbfgs.minimize_lockstep``), each evaluation of the live ones ONE
+    batched ``ExactLML``, whose gram is one kernel launch (romcomma_tpu vmaps
+    the same descents, ``gp.py:106-118``). raws leaves stacked on a leading
+    fold axis, (K, L[, M]); xs (K,N,M); ys (K,N,L). Returns (raw_opt (K,L,...),
+    lml (K,L), iterations (K,L), scipy's stop reasons [K][L])."""
+    wd = raws['raw_variance'].dtype
+    xs, ys = xs.to(wd), ys.to(wd)
+    K, L = ys.shape[0], ys.shape[2]
+    frozen = {name: value.detach().flatten(0, 1) for name, value in raws.items()}   # (K*L, ...)
+    outputs = torch.movedim(ys, 2, 1).flatten(0, 1)                                 # (K*L, N)
+    starts = [{name: value[i] for name, value in frozen.items()} for i in range(K * L)]
+
+    def objective(members: List[int], p: VariantParams) -> torch.Tensor:
+        # The parameters are constrained member by member: a CPU elementwise
+        # kernel may round the tail of a longer tensor otherwise than a
+        # member's own, and the descents are held to the sequential loop's.
+        c = [variant_constrain(_merge({name: value[r] for name, value in p.items()}, starts[i],
+                                      mask)) for r, i in enumerate(members)]
+        c = {name: torch.stack([c_r[name] for c_r in c]) for name in c[0]}
+        index = torch.tensor(members, device=xs.device)
+        value = -ExactLML.apply(c['lengthscales'], c['variance'], c['noise'],
+                                xs[index // L], outputs[index])
+        return torch.where(torch.isfinite(value), value, torch.inf)
+
+    results = lbfgs.minimize_lockstep(objective, starts, maxiter=maxiter, gtol=gtol, ftol=ftol)
+    raw_opt = {name: torch.stack([_merge(res.params, start, mask)[name]
+                                  for res, start in zip(results, starts)]).unflatten(0, (K, L))
+               for name in raws}
+    lml = torch.tensor([-res.value for res in results], dtype=torch.float64).reshape(K, L)
+    iterations = torch.tensor([res.iterations for res in results]).reshape(K, L)
+    stops = [[results[k * L + l].message for l in range(L)] for k in range(K)]
+    return raw_opt, lml, iterations, stops
 
 
 def predict_variant(raw: VariantParams, x: torch.Tensor, y: torch.Tensor, xs: torch.Tensor,

@@ -55,10 +55,11 @@ def rbf_gram(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
 
 def rbf_gram_variant(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
                      variance: torch.Tensor) -> torch.Tensor:
-    """Per-output ARD-RBF grams.
+    """Per-output ARD-RBF grams; a float32 CUDA build is one kernel launch.
 
     Args:
-        x1: (A,M). x2: (B,M).
+        x1: (A,M), or (L,A,M) with inputs of their own per member.
+        x2: (B,M), or (L,B,M).
         lengthscales: (L,M) or (L,1). variance: (L,).
     Returns: (L,A,B).
     """

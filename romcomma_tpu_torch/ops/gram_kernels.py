@@ -16,7 +16,10 @@ with the analytic backward of the JAX custom VJP: with W = gbar * E,
 
 two plain float32 matmuls, never an (A, B, M) tensor. Lengthscale scaling and
 the variance factor sit outside the op, so autograd carries gradients to every
-hyperparameter.
+hyperparameter. Every function here also takes a leading batch axis, u
+(B, A, M) and v (B, Bv, M) giving (B, A, Bv), which the kernel computes in one
+launch: the counterpart of the grid axis that JAX's vmap adds to the
+pallas_call, where romcomma_tpu vmaps its LML over outputs and folds.
 
 A tensor on the CPU takes the plain version ``unit_gram_plain``. A CUDA tensor
 always launches the kernel, or raises: there is no fallback.
@@ -41,8 +44,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
-#: Number of kernel launches made by this process (one per unit_gram_cuda call).
+#: Number of kernel launches made by this process (one per unit_gram_cuda call,
+#: whatever its batch), and how many of them were of a batch of two or more.
 LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 
 _LIBRARY = None
 _INT_MAX = 2 ** 31 - 1
@@ -75,7 +80,7 @@ def _library() -> ctypes.CDLL:
     global _LIBRARY
     if _LIBRARY is None:
         library = ctypes.CDLL(str(build()))
-        library.unit_gram_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        library.unit_gram_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         library.unit_gram_f32.restype = ctypes.c_int
         _LIBRARY = library
@@ -83,11 +88,11 @@ def _library() -> ctypes.CDLL:
 
 
 def unit_gram_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """exp(-1/2 |u_a - v_b|^2) by the matmul expansion: the kernel's oracle and
-    its CPU version."""
+    """exp(-1/2 |u_a - v_b|^2) by the matmul expansion, over any leading batch
+    axes: the kernel's oracle and its CPU version."""
     uu = torch.sum(u * u, dim=-1)
     vv = torch.sum(v * v, dim=-1)
-    sqd = torch.clamp(uu[:, None] + vv[None, :] - 2.0 * (u @ v.T), min=0.0)
+    sqd = torch.clamp(uu[..., :, None] + vv[..., None, :] - 2.0 * (u @ v.mT), min=0.0)
     return torch.exp(-0.5 * sqd)
 
 
@@ -96,8 +101,9 @@ def _check(t: torch.Tensor, name: str):
         raise ValueError(f'unit_gram kernel: {name} must be a CUDA tensor, got {t.device}.')
     if t.dtype != torch.float32:
         raise TypeError(f'unit_gram kernel: {name} must be float32, got {t.dtype}.')
-    if t.dim() != 2:
-        raise ValueError(f'unit_gram kernel: {name} must be 2-D, got shape {tuple(t.shape)}.')
+    if t.dim() not in (2, 3):
+        raise ValueError(f'unit_gram kernel: {name} must be 2-D or 3-D (a batch), got shape '
+                         f'{tuple(t.shape)}.')
     if not t.is_contiguous():
         raise ValueError(f'unit_gram kernel: {name} must be contiguous.')
 
@@ -127,41 +133,47 @@ def _scratch(index: int, stream: int, floats: int) -> torch.Tensor:
 
 def unit_gram_cuda(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream: u (A,M), v (B,M)
-    float32, contiguous, on one CUDA device -> (A,B) float32. When u and v
-    are one tensor, it is packed once."""
-    global LAUNCHES
+    float32, contiguous, on one CUDA device -> (A,B) float32; or a batch, u
+    (n,A,M), v (n,B,M) -> (n,A,B), in one launch. When u and v are one tensor,
+    it is packed once."""
+    global LAUNCHES, BATCHED_LAUNCHES
     _check(u, 'u')
     _check(v, 'v')
     if u.device != v.device:
         raise ValueError(f'unit_gram kernel: u on {u.device} but v on {v.device}.')
-    (A, M), B = u.shape, v.shape[0]
-    if v.shape[1] != M or M < 1:
+    batched = u.dim() == 3
+    n = u.shape[0] if batched else 1
+    (A, M), B = u.shape[-2:], v.shape[-2]
+    if v.dim() != u.dim() or v.shape[-1] != M or M < 1 or (batched and v.shape[0] != n):
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)} and {tuple(v.shape)} '
-                         'need one common, non-empty M.')
-    # The kernel takes A, B and M as 32-bit ints and indexes rows and columns
-    # with them; every offset into the operands, the packed scratch and the
-    # output is size_t, so the output holds any A x B, the covariant path's
-    # (L*N)^2 included.
-    if max(A * M, B * M) > _INT_MAX:
+                         'need one common batch and one common, non-empty M.')
+    # The kernel takes the batch, A, B and M as 32-bit ints, indexes rows and
+    # columns with them and counts every member's 128 x 128 tiles in one; every
+    # offset into the operands, the packed scratch and the output is size_t,
+    # so the output holds any n x A x B, the covariant path's (L*N)^2 included.
+    tiles = n * -(-A // BLOCK_ROWS) * -(-B // BLOCK_ROWS)
+    if max(A * M, B * M, tiles) > _INT_MAX:
         raise ValueError(f'unit_gram kernel: shapes {tuple(u.shape)}, {tuple(v.shape)} '
                          'exceed the kernel\'s 32-bit indexing.')
-    if A == 0 or B == 0:
-        return torch.empty((A, B), dtype=torch.float32, device=u.device)
+    shape = (n, A, B) if batched else (A, B)
+    if n == 0 or A == 0 or B == 0:
+        return torch.empty(shape, dtype=torch.float32, device=u.device)
     library = _library()
-    out = torch.empty((A, B), dtype=torch.float32, device=u.device)
-    shared = u.data_ptr() == v.data_ptr() and A == B
-    at_v = 0 if shared else -(-scratch_floats(A, M) // 64) * 64   # 256-byte aligned
+    out = torch.empty(shape, dtype=torch.float32, device=u.device)
+    shared = u.data_ptr() == v.data_ptr() and u.shape == v.shape
+    at_v = 0 if shared else -(-n * scratch_floats(A, M) // 64) * 64   # 256-byte aligned
     # The C entry launches on the current device; switch only when u is elsewhere.
     index = u.device.index
     with contextlib.nullcontext() if index == torch.cuda.current_device() else torch.cuda.device(index):
         stream = torch._C._cuda_getCurrentRawStream(index)
-        base = _scratch(index, stream, at_v + scratch_floats(B, M)).data_ptr()
+        base = _scratch(index, stream, at_v + n * scratch_floats(B, M)).data_ptr()
         error = library.unit_gram_f32(u.data_ptr(), v.data_ptr(), base, base + 4 * at_v,
-                                      out.data_ptr(), A, B, M, stream)
+                                      out.data_ptr(), n, A, B, M, stream)
     if error != 0:
         raise RuntimeError(f'unit_gram kernel launch failed with CUDA error {error} '
                            '(-1: CUDA refused the output\'s TMA descriptor).')
     LAUNCHES += 1
+    BATCHED_LAUNCHES += int(n > 1)
     return out
 
 
@@ -171,7 +183,7 @@ def _unit_gram_forward(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 class UnitGram(torch.autograd.Function):
     """E = exp(-1/2 |u_a - v_b|^2), with the analytic backward of
-    romcomma_tpu's ``_unit_gram_bwd``."""
+    romcomma_tpu's ``_unit_gram_bwd``, member by member of a batch."""
 
     @staticmethod
     def forward(ctx, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -183,13 +195,14 @@ class UnitGram(torch.autograd.Function):
     def backward(ctx, gbar: torch.Tensor):
         u, v, E = ctx.saved_tensors
         W = gbar * E
-        du = W @ v - u * torch.sum(W, dim=1)[:, None]
-        dv = W.T @ u - v * torch.sum(W, dim=0)[:, None]
+        du = W @ v - u * torch.sum(W, dim=-1)[..., None]
+        dv = W.mT @ u - v * torch.sum(W, dim=-2)[..., None]
         return du, dv
 
 
 def unit_gram(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """E[a,b] = exp(-1/2 |u_a - v_b|^2) for u (A,M), v (B,M); differentiable."""
+    """E[a,b] = exp(-1/2 |u_a - v_b|^2) for u (A,M), v (B,M), or for each
+    member of u (n,A,M), v (n,B,M); differentiable."""
     return UnitGram.apply(u, v)
 
 
@@ -226,7 +239,12 @@ def rbf_gram_covariant_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: 
 
 def rbf_gram_variant_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
                             variance: torch.Tensor) -> torch.Tensor:
-    """Per-output grams (L,A,B), one kernel launch per output.
-    lengthscales (L,M) or (L,1); variance (L,)."""
-    return torch.stack([rbf_gram_kernel(x1, x2, lengthscales[l], variance[l])
-                        for l in range(lengthscales.shape[0])])
+    """Per-member grams (L,A,B) = variance[l] * unit_gram(x1/lam_l, x2/lam_l)
+    in ONE kernel launch over the inputs scaled per member and stacked:
+    lengthscales (L,M) or (L,1); variance (L,); x1 (A,M) and x2 (B,M) shared
+    by the members (one fold's outputs), or (L,A,M) and (L,B,M), one per
+    member (the outputs of several folds). A training gram (x1 is x2) hands
+    the kernel one stacked tensor."""
+    ls = lengthscales[:, None, :]
+    u = (x1 / ls).contiguous()
+    return variance[:, None, None] * unit_gram(u, u if x2 is x1 else (x2 / ls).contiguous())

@@ -230,10 +230,55 @@ def test_gaussian_full_variance_ratio_and_expand_dims():
 
 
 def test_general_slice_with_errors_raises():
-    cal = calibrators.ClosedSobolWithError.from_arrays(
-        **_posterior(1), is_F_diagonal=True, L=1, M=M, N=N)
-    with pytest.raises(NotImplementedError, match='per-slice error path'):
-        cal.marginalize_intervals(((1, 3),))
+    """A general slice, which raised while the per-slice error path was not
+    ported, now returns: its V, S, W and T through per-slice evaluation,
+    romcomma_tpu's, beside a canonical slice, as romcomma_tpu's
+    marginalize_intervals does."""
+    slices = ((1, 3), (0, 2))
+    jax_cal, cal = _pair('ClosedSobolWithError', 1)
+    got, want = cal.marginalize_intervals(slices), jax_cal.marginalize_intervals(slices)
+    for key in ('V', 'S', 'W', 'T'):
+        for i, s in enumerate(slices):
+            np.testing.assert_allclose(got[key][..., i].numpy(), np.asarray(want[key][..., i]),
+                                       rtol=PER_SLICE_RTOL, atol=TOL[key][1],
+                                       err_msg=f'{key} slice {s}')
+
+
+#: The per-slice path against romcomma_tpu's: 1e-10 relative, with the floors
+#: of TOL (T's where Q cancels).
+PER_SLICE_RTOL = 1e-10
+
+
+@pytest.mark.parametrize('is_T_partial', [True, False], ids=['T-partial', 'T-full'])
+@pytest.mark.parametrize('L', [1, 2])
+def test_per_slice_errors_match(L, is_T_partial):
+    """ClosedSobolWithError.marginalize, slice by slice, against romcomma_tpu's
+    on tests/test_gsa_chunked.py::_error_calibrator's problem: a single dim,
+    a general slice and the full interval."""
+    jax_cal, cal = _pair('ClosedSobolWithError', L, is_T_partial=is_T_partial)
+    for s in ((2, 3), (1, 3), (0, M)):
+        got, want = cal.marginalize(s), jax_cal.marginalize(s)
+        for key in ('V', 'S', 'W', 'T'):
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                       rtol=PER_SLICE_RTOL, atol=TOL[key][1],
+                                       err_msg=f'{key} slice {s}')
+
+
+@pytest.mark.parametrize('is_T_partial', [True, False], ids=['T-partial', 'T-full'])
+@pytest.mark.parametrize('L', [1, 2])
+def test_factorized_sweep_matches_the_per_slice_path(L, is_T_partial):
+    """The port's factorized W/T sweep against its own per-slice path, every
+    canonical slice, at tests/test_gsa_chunked.py::
+    test_error_intervals_match_per_slice's tolerances: the oracle the card
+    holds its sweep to without JAX."""
+    _, cal = _pair('ClosedSobolWithError', L, is_T_partial=is_T_partial)
+    got = cal.marginalize_intervals(SLICES)
+    for i, s in enumerate(SLICES):
+        want = cal.marginalize(s)
+        for key in ('V', 'S', 'W', 'T'):
+            atol = 1e-7 if key == 'T' else 1e-11
+            np.testing.assert_allclose(got[key][..., i].numpy(), want[key].numpy(), rtol=1e-9,
+                                       atol=atol, err_msg=f'{key} {s} partial={is_T_partial}')
 
 
 def test_errors_refuse_a_non_diagonal_signal_variance():

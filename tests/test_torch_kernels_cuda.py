@@ -115,14 +115,91 @@ def test_calls_on_two_streams_and_of_changing_size(cuda):
 
 
 def test_dispatch_sends_only_float32_cuda_to_the_kernel(cuda):
+    """A float32 variant gram is one batched launch over its outputs; a
+    float64 one takes the plain path and launches nothing."""
     x = torch.randn(50, 7, generator=torch.Generator().manual_seed(3)).to(cuda)
     ls, s2 = torch.full((2, 7), 1.5, device=cuda), torch.tensor([1.0, 2.0], device=cuda)
+    before, batched = gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES
+    got = gram.rbf_gram_variant(x, x, ls, s2)
+    assert (gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES) == (before + 1, batched + 1)
+    want = gram.rbf_gram_variant(x.double(), x.double(), ls.double(), s2.double())
+    assert gram_kernels.LAUNCHES == before + 1
+    torch.testing.assert_close(got.double(), want, rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
+#: (n, A, B, M, u is v): the main path's batches (two 4096-row folds x 3
+#: outputs; phase 8b's two 5120-row folds x 3; one fold's 3 outputs at 8192),
+#: ragged two-operand batches (masked and TMA stores, several M chunks), and
+#: a batch of one.
+BATCHES = [(6, 4096, 4096, 30, True), (6, 5120, 5120, 30, True), (3, 8192, 8192, 30, True),
+           (3, 4097, 1000, 70, False), (2, 37, 61, 5, False), (4, 150, 150, 7, True),
+           (1, 300, 200, 30, False)]
+
+
+def _batch(n, A, B, M, shared, on, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    scale = 1.5 / math.sqrt(M)
+    u = (torch.randn(n, A, M, generator=g) * scale).to(on)
+    return u, u if shared else (torch.randn(n, B, M, generator=g) * scale).to(on)
+
+
+@pytest.mark.parametrize('n, A, B, M, shared', BATCHES)
+def test_batched_launch_matches_plain_and_single_launches(cuda, n, A, B, M, shared):
+    """One launch for a batch: each member against the plain version, and
+    bit for bit against its own single launch (the same tiles, the same
+    arithmetic)."""
+    u, v = _batch(n, A, B, M, shared, cuda)
+    before = gram_kernels.LAUNCHES
+    got = gram_kernels.unit_gram_cuda(u, v)
+    torch.cuda.synchronize()
+    assert gram_kernels.LAUNCHES == before + 1
+    assert got.shape == (n, A, B) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, gram_kernels.unit_gram_plain(u, v), rtol=VALUE_TOL,
+                               atol=VALUE_TOL)
+    for i in range(n):
+        single = gram_kernels.unit_gram_cuda(u[i], u[i] if shared else v[i])
+        assert torch.equal(got[i], single), i
+    if shared:
+        assert torch.all(torch.diagonal(got, dim1=-2, dim2=-1) == 1.0)
+
+
+def test_batched_backward_matches_plain(cuda):
+    u, v = _batch(3, 513, 1000, 70, False, cuda, seed=1)
+    gbar = torch.randn(3, 513, 1000, generator=torch.Generator().manual_seed(2)).to(cuda)
+    grads = []
+    for fn in (gram_kernels.unit_gram, gram_kernels.unit_gram_plain):
+        uu, vv = u.clone().requires_grad_(True), v.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(torch.sum(fn(uu, vv) * gbar), (uu, vv)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=GRAD_RTOL * want.abs().max().item())
+
+
+def test_batch_past_32_bit_offsets(cuda):
+    """n * A * B above 2^31: the last member's output starts past any 32-bit
+    offset, and is still right."""
+    n, A, M = 9, 16384, 30
+    u, _ = _batch(n, A, A, M, True, cuda, seed=6)
+    assert n * A * A > 2 ** 31
+    got = gram_kernels.unit_gram_cuda(u, u)
+    torch.cuda.synchronize()
+    for i in (0, n - 1):
+        torch.testing.assert_close(got[i], gram_kernels.unit_gram_plain(u[i], u[i]),
+                                   rtol=VALUE_TOL, atol=VALUE_TOL)
+
+
+def test_variant_gram_of_per_member_inputs(cuda):
+    """rbf_gram_variant over members with inputs of their own (the outputs of
+    several folds), one launch, against the float64 plain path."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(4, 300, 7, generator=g).to(cuda)
+    ls = (0.8 + torch.rand(4, 7, generator=g)).to(cuda)
+    s2 = (0.5 + torch.rand(4, generator=g)).to(cuda)
     before = gram_kernels.LAUNCHES
     got = gram.rbf_gram_variant(x, x, ls, s2)
-    assert gram_kernels.LAUNCHES == before + 2
+    assert gram_kernels.LAUNCHES == before + 1
     want = gram.rbf_gram_variant(x.double(), x.double(), ls.double(), s2.double())
-    assert gram_kernels.LAUNCHES == before + 2
-    torch.testing.assert_close(got.double(), want, rtol=VALUE_TOL, atol=VALUE_TOL)
+    # s2 < 1.5 scales E's error; the float32 x / ls rounds on the kernel's side only.
+    torch.testing.assert_close(got.double(), want, rtol=VALUE_TOL, atol=2 * VALUE_TOL)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
@@ -288,3 +365,4 @@ def test_distributed_gp_float32_lml_through_the_kernel(cuda):
     assert abs(value32.item() - value64.item()) <= 10 * 2048 * 1.1920929e-07 * (1.0 / 0.1 + 1)
     for got, want in zip(grads32, grads64):
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())
+

@@ -2,7 +2,9 @@
 small models through run.gpr (the variant and the covariant MOGP, and the
 variant again through the large-N route, DistributedGP), runs their GSA
 through run.gsa (the variant with standard errors) and one ROM.calibrate, on
-the CPU it asks for, without importing jax or romcomma_tpu."""
+the CPU it asks for, without importing jax or romcomma_tpu; then run.gpr and
+run.gsa on the fold-batched path (fold_parallel=True: the lockstep descents,
+the stacked GSA) on a repository of two equal folds."""
 
 import subprocess
 import sys
@@ -35,6 +37,11 @@ with user.contexts.Environment('port', device='CPU'):
     from romcomma_tpu_torch.rom import ROM
     ROM('rom', Fold(repo, 0), m=1, iterations=1, rotation_method='sobol', maxiter=20,
         theta_maxiter=10, theta_starts=1).calibrate()
+    pair = Repository.from_df({str(tmp_path / 'pair')!r}, df).into_K_folds(2)
+    user.run.gpr('gpr', pair, is_read=False, is_covariant=False, is_isotropic=None, maxiter=20,
+                 fold_parallel=True)
+    user.run.gsa('gpr', pair, is_covariant=False, is_isotropic=False, is_error_calculated=True,
+                 fold_parallel=True)
 assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
 assert 'romcomma_tpu_torch.rom.rom' in sys.modules
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
@@ -53,3 +60,5 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
         assert (tmp_path / 'repo' / f'fold.{k}' / 'large.v.a' / 'test.csv').exists()
     for csv in ('meta.json', 'rotation.csv'):
         assert (tmp_path / 'repo' / 'fold.0' / 'rom' / csv).exists()
+    for k in (0, 1, 2):
+        assert (tmp_path / 'pair' / f'fold.{k}' / 'gpr.v.a' / 'gsa' / 'total' / 'T.csv').exists()

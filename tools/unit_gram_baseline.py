@@ -74,6 +74,8 @@ def main(source: str, run_gpr: bool) -> int:
         current = gram_kernels.unit_gram_cuda
 
         def earlier_cuda(u, v):
+            if u.dim() == 3:       # the earlier kernel has no batch: one launch per member
+                return torch.stack([earlier_cuda(a, b) for a, b in zip(u, v)])
             out = torch.empty((u.shape[0], v.shape[0]), dtype=torch.float32, device=u.device)
             error = earlier.unit_gram_f32(u.data_ptr(), v.data_ptr(), out.data_ptr(), u.shape[0],
                                           v.shape[0], u.shape[1],
@@ -85,7 +87,7 @@ def main(source: str, run_gpr: bool) -> int:
         for label, kernel in (('current', current), ('earlier', earlier_cuda)):
             gram_kernels.unit_gram_cuda = kernel
             try:
-                launches, seconds, worst = chip_smoke.main_path(torch, user, gram_kernels)
+                _, launches, seconds, worst = chip_smoke.main_path(torch, user, gram_kernels)
             finally:
                 gram_kernels.unit_gram_cuda = current
             print(f'run.gpr through the {label} kernel: {seconds:.2f} s, {launches} launches, '
