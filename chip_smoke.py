@@ -18,9 +18,10 @@ Phases (each prints its result and its time; none catches its own failure):
      host time per call; and the forward's times at the covariant shapes;
      then the batched launch (one launch for a batch of grams) against its
      plain version and, bit for bit, against one launch per member, at the
-     main path's batches (6, 4096^2, 30), (6, 5120^2, 30), (3, 8192^2, 30)
-     and a ragged two-operand one, each timed against its members' single
-     launches, with its bound;
+     main path's batches (6, 4096^2, 30), (6, 5120^2, 30), (3, 8192^2, 30),
+     a ragged two-operand one and the CLIs' (60, 3800^2, 30) and
+     (18, 4000^2, 19), each timed against its members' single launches, with
+     its bound;
   4. the main path at full size through the user entry points:
      sample OAKLEY2004 at N=8192, M=30 -> into_K_folds(2) -> run.gpr (variant
      MOGP, isotropic then anisotropic, maxiter=50, tested, fold_parallel=True:
@@ -94,15 +95,29 @@ Phases (each prints its result and its time; none catches its own failure):
      phase 4's first-order bound, their iteration counts side by side; and,
      from phase 4's trained parameters, the fold-stacked GSA of phase 6 held
      to the per-fold GSA in S, V, W and T^2 within ULP_SPREADS of their
-     one-ulp spreads.
+     one-ulp spreads;
+ 11. the CSV CLI: ``csv_script -r -a <csv> <root>`` with its defaults on a
+     user CSV of OAKLEY2004 at N=4000, M=30 (K=20 folds of 3800 rows: their
+     60 descents in lockstep, each round one batched launch; the improper
+     fold alone; anisotropic from a cold start, maxiter 5000; then run.gsa,
+     three kinds with errors, the 20 folds in one stacked pass); run.gpr and
+     run.gsa seconds, rounds, launches, the rounds' value+grad and host time,
+     peak memory; each fold and output's LML within phase 4's first-order
+     bound, the GSA tree and every CSV finite; the stacked GSA against
+     run.gsa's per-fold loop on a copy; and the likelihood layer and
+     regression.gls on the card against the CPU on fold 0's test predictions;
+ 12. the sweep CLI: ``benchmark_script -f -r -s -M 19 --num-processes 940
+     --process-id 325 <root>``, whose own selection runs the one cell of
+     noise 0.1 and N=8000 (ALL, L=9, K=-2: two 4000-row folds, 18 descents
+     in lockstep); the same readings and checks.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
-of phase 4 and of phase 7, the north star and run.gpr of phase 8 and the two
-ROMs of phase 9, each counted from 0 just before it runs, and, as a path of
-the same kernel, its batched launches among them (phases 4 and 8b). Exits
-non-zero, printing no result, where there is no CUDA device or no checkout
-around the script.
+of phase 4 and of phase 7, the north star and run.gpr of phase 8, the two
+ROMs of phase 9 and the CLIs of phases 11 and 12, each counted from 0 just
+before it runs, and, as a path of the same kernel, its batched launches among
+them (phases 4, 8b, 11 and 12). Exits non-zero, printing no result, where
+there is no CUDA device or no checkout around the script.
 """
 
 from __future__ import annotations
@@ -140,9 +155,31 @@ COVARIANT_GRAM_CASE = (3, 2048, 1536, 30)
 #: (n, A, B, M, u is v) of the batched launch: the two 4096-row folds x 3
 #: outputs (phase 4's fold group), phase 8b's two 5120-row folds x 3, the
 #: improper fold's 3 outputs at 8192 (rbf_gram_variant in test() and
-#: check_K_inv_Y), and a ragged two-operand batch (masked stores, 3 M chunks).
+#: check_K_inv_Y), a ragged two-operand batch (masked stores, 3 M chunks),
+#: and the CLIs' fold groups: csv_script's 20 folds x 3 outputs at 3800 rows
+#: (phase 11) and benchmark_script's 2 folds x 9 outputs at 4000 rows, M=19
+#: (phase 12).
 BATCH_SHAPES = [(6, 4096, 4096, 30, True), (6, 5120, 5120, 30, True),
-                (3, 8192, 8192, 30, True), (3, 4097, 1000, 70, False)]
+                (3, 8192, 8192, 30, True), (3, 4097, 1000, 70, False),
+                (60, 3800, 3800, 30, True), (18, 4000, 4000, 19, True)]
+#: Phase 11: csv_script's own workflow on a user CSV of OAKLEY2004 (L=3) at
+#: N=4000, M=30, noise 0.04, through the CLI with its defaults: K=20 folds of
+#: 3800 rows and the improper fold, anisotropic from a cold start, maxiter
+#: 5000, then the three GSA kinds with errors.
+CSV_N, CSV_M, CSV_K = 4000, 30, 20
+CSV_ROOT = ROOT / 'build' / 'chip_smoke_csv'
+#: Phase 12: benchmark_script's sweep cell 325 of the M=19 grid (20 noise
+#: magnitudes x 47 N = 940 cells): noise 0.1, N=8000, the ALL vector (L=9),
+#: K=-2, so two 4000-row folds and no improper fold.
+SWEEP_ARGV = ['-f', '-r', '-s', '-M', '19', '--num-processes', '940', '--process-id', '325']
+SWEEP_M, SWEEP_L, SWEEP_FOLDER = 19, 9, 'all.M.19.d.v.10.00.N.8000'
+SWEEP_ROOT = ROOT / 'build' / 'chip_smoke_sweep'
+#: A card-against-CPU check of the likelihood layer and regression.gls
+#: (float64), relative to each result's largest entry: both sides factorize
+#: the same well-conditioned matrices of order <= 600.
+LIKELIHOOD_TOL = 1e-10
+#: OAKLEY2004's inputs that its outputs depend on (the first 7 of M).
+ACTIVE_INPUTS = 7
 #: Phase 10's copy of phase 4's sampled repository.
 SEQUENTIAL_ROOT = ROOT / 'build' / 'chip_smoke_sequential'
 #: What phase 4 leaves for phase 10: its calibration records and batched launches.
@@ -421,10 +458,6 @@ def check_batched(torch, gram_kernels):
 
 def main_path(torch, user, gram_kernels):
     """Phase 4: sample -> k-fold -> run.gpr at full size, through the kernel."""
-    from romcomma_tpu_torch.models import gp, params
-    from romcomma_tpu_torch.models.gpr import MOGP
-    from romcomma_tpu_torch.data.storage import Fold
-
     root = ROOT / 'build' / 'chip_smoke'
     shutil.rmtree(root, ignore_errors=True)
     np_seed(SEED)
@@ -451,6 +484,20 @@ def main_path(torch, user, gram_kernels):
             'the main path never ran a fold group through the batched launch')
     MAIN_PATH.update(records=records, batched_launches=batched)
     require(names == ['gpr.v.i', 'gpr.v.a'], names)
+    worst = check_lml_bounds(torch, repo, names)
+    summary = repo.folder / 'gpr.v.a' / 'test_summary.csv'
+    print(f'test_summary (anisotropic, all folds):\n{summary.read_text()}', flush=True)
+    return repo, launches, seconds, worst
+
+
+def check_lml_bounds(torch, repo, names, echo=True):
+    """Each fold and model of a repository trained in float32: test.csv and
+    test_summary.csv written, and each output's float32 LML (through the
+    kernel) within the first-order bound of the float64 plain LML from the
+    same parameters. Returns the worst error / bound."""
+    from romcomma_tpu_torch.models import gp, params
+    from romcomma_tpu_torch.models.gpr import MOGP
+    from romcomma_tpu_torch.data.storage import Fold
     worst = 0.0
     for k in repo.folds:
         fold = Fold(repo, k)
@@ -474,14 +521,23 @@ def main_path(torch, user, gram_kernels):
             # y'K^-1 y by up to ~N * eps32 * s2 / noise; 10x that is the bound.
             bound = 10 * model.N * 1.1920929e-07 * (c['variance'] / c['noise'] + 1.0)
             error = (lml32.double() - lml64).abs()
-            worst = max(worst, (error / bound).max().item())
-            print(f'fold.{k} {name} N={model.N}: LML f32 kernel {lml32.tolist()} vs f64 plain '
-                  f'{lml64.tolist()}; |diff| {error.tolist()} bound {bound.tolist()}; {stored}',
-                  flush=True)
+            ratio = error / bound
+            l = int(ratio.argmax())
+            if ratio[l].item() >= worst:
+                worst = ratio[l].item()
+                where = (f'fold.{k} {name} output {l}: LML {lml64[l].item():.6f}, |diff| '
+                         f'{error[l].item():.3e}, bound {bound[l].item():.3e}; variance '
+                         f'{c["variance"][l].item():.4g}, noise {c["noise"][l].item():.4g}, '
+                         f'lengthscales {c["lengthscales"][l].min().item():.4g} to '
+                         f'{c["lengthscales"][l].max().item():.4g}')
+            if echo:
+                print(f'fold.{k} {name} N={model.N}: LML f32 kernel {lml32.tolist()} vs f64 plain '
+                      f'{lml64.tolist()}; |diff| {error.tolist()} bound {bound.tolist()}; {stored}',
+                      flush=True)
             require(bool((error <= bound).all()), (k, name, error, bound))
-    summary = repo.folder / 'gpr.v.a' / 'test_summary.csv'
-    print(f'test_summary (anisotropic, all folds):\n{summary.read_text()}', flush=True)
-    return repo, launches, seconds, worst
+    if not echo:
+        print(f'  the closest to its bound: {where}', flush=True)
+    return worst
 
 
 def np_seed(seed: int):
@@ -594,11 +650,11 @@ def gsa_records(torch, keep_inputs=False):
         calibrators.marginalize_intervals_folds = intervals
 
 
-def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW'):
-    """Every fold's `csvs` of every kind exist and are finite, with one
-    column per m (and the full slice's m=M in S, V and T); the full slice's S
-    has a unit diagonal; CLOSED S (each output's own index, the diagonal)
-    does not decrease in m; T >= 0."""
+def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW', M_=M, L_=3):
+    """Every fold's `csvs` of every kind exist and are finite, with L_^2 rows
+    and one column per m (and the full slice's m=M_ in S, V and T); the full
+    slice's S has a unit diagonal; CLOSED S (each output's own index, the
+    diagonal) does not decrease in m; T >= 0."""
     import numpy as np
     import pandas as pd
     for k in repo.folds:
@@ -606,12 +662,13 @@ def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW'):
             folder = repo.fold_folder(k) / model / 'gsa' / kind
             frames = {csv: pd.read_csv(folder / f'{csv}.csv', index_col=[0, 1]) for csv in csvs}
             for csv, frame in frames.items():
-                columns = M if csv == 'W' else M + 1
-                require(frame.shape == (9, columns) and bool(np.isfinite(frame.to_numpy()).all()),
+                columns = M_ if csv == 'W' else M_ + 1
+                require(frame.shape == (L_ * L_, columns)
+                        and bool(np.isfinite(frame.to_numpy()).all()),
                         f'{folder / csv}.csv: shape {frame.shape}, or not finite')
             S = frames['S']
-            diagonal = [(l, l) for l in range(3)]
-            require(np.abs(S.loc[diagonal, str(M)].to_numpy() - 1).max() <= 1e-9,
+            diagonal = [(l, l) for l in range(L_)]
+            require(np.abs(S.loc[diagonal, str(M_)].to_numpy() - 1).max() <= 1e-9,
                     f'{folder}: the full slice\'s S has no unit diagonal')
             require('T' not in frames or bool((frames['T'].to_numpy() >= 0).all()),
                     f'{folder}: T < 0')
@@ -2037,6 +2094,298 @@ def sequential_phase(torch, user, gram_kernels, repo):
     require(max(readings) <= ULP_SPREADS, 'the stacked GSA and the per-fold GSA differ')
 
 
+@contextmanager
+def entry_records(torch):
+    """Wall-clock and peak device memory of each run.gpr and run.gsa call that
+    a CLI makes (the card synchronised at both ends; calls that these make
+    count in theirs), and every warning raised meanwhile: run's automatic
+    fold-parallel mode warns where it falls back to the per-fold loop."""
+    import warnings
+    from romcomma_tpu_torch.user import run
+    calls, depth = [], [0]
+    originals = {'gpr': run.gpr, 'gsa': run.gsa}
+
+    def timed(step, function):
+        def wrapper(*args, **kwargs):
+            depth[0] += 1
+            try:
+                if depth[0] > 1:
+                    return function(*args, **kwargs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = function(*args, **kwargs)
+                torch.cuda.synchronize()
+                calls.append({'step': step, 'seconds': time.perf_counter() - t0,
+                              'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30})
+                return out
+            finally:
+                depth[0] -= 1
+        return wrapper
+
+    for step, function in originals.items():
+        setattr(run, step, timed(step, function))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            yield {'calls': calls, 'warnings': caught}
+    finally:
+        for step, function in originals.items():
+            setattr(run, step, function)
+
+
+@contextmanager
+def round_records(torch):
+    """Each round of lbfgs.minimize_lockstep: its live descents and the
+    seconds from the call of its objective to its gradients (the batch's
+    value+grad, the card synchronised at both ends). The rest of a fold
+    group's time is the host's: scipy in its threads, and the hand-over."""
+    from romcomma_tpu_torch.ops import lbfgs
+    rounds, state = [], {'t0': None}
+    lockstep, flat_grad = lbfgs.minimize_lockstep, lbfgs._Packing.flat_grad
+
+    def timed_lockstep(fun, starts, *args, **kwargs):
+        def timed_fun(members, p):
+            torch.cuda.synchronize()
+            state['t0'], state['members'] = time.perf_counter(), len(members)
+            return fun(members, p)
+        return lockstep(timed_fun, starts, *args, **kwargs)
+
+    def timed_flat_grad(self, grads, n):
+        if state['t0'] is not None:
+            torch.cuda.synchronize()
+            rounds.append((state['members'], time.perf_counter() - state['t0']))
+            state['t0'] = None
+        return flat_grad(self, grads, n)
+
+    lbfgs.minimize_lockstep, lbfgs._Packing.flat_grad = timed_lockstep, timed_flat_grad
+    try:
+        yield rounds
+    finally:
+        lbfgs.minimize_lockstep, lbfgs._Packing.flat_grad = lockstep, flat_grad
+
+
+def drive_cli(torch, gram_kernels, label, call):
+    """Run a CLI, call(), with the unit-gram launches counted from 0 and its
+    run.gpr and run.gsa, calibrations, lockstep rounds and GSA recorded;
+    require one run.gpr, one run.gsa, no fallback to the per-fold loop and a
+    launch; print the wall-clock split. Returns (records, rounds, GSA
+    records, launches, batched launches, seconds)."""
+    gram_kernels.LAUNCHES = gram_kernels.BATCHED_LAUNCHES = 0
+    with (entry_records(torch) as entries, calibration_records(torch, gram_kernels) as records,
+          round_records(torch) as rounds, gsa_records(torch) as gsas):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, batched = gram_kernels.LAUNCHES, gram_kernels.BATCHED_LAUNCHES
+    fallbacks = [str(w.message) for w in entries['warnings'] if 'fold-parallel' in str(w.message)]
+    require(not fallbacks, (label, fallbacks))
+    steps = {entry['step']: entry for entry in entries['calls']}
+    require(sorted(steps) == ['gpr', 'gsa'] and len(entries['calls']) == 2,
+            (label, entries['calls']))
+    print(f'{label}: {seconds:.2f} s (run.gpr {steps["gpr"]["seconds"]:.2f} s, peak '
+          f'{steps["gpr"]["peak_gib"]:.2f} GiB; run.gsa {steps["gsa"]["seconds"]:.2f} s, peak '
+          f'{steps["gsa"]["peak_gib"]:.2f} GiB); unit-gram launches {launches}, of them batched '
+          f'{batched}', flush=True)
+    require(launches > 0, f'{label} never launched the unit-gram kernel')
+    return records, rounds, gsas, launches, batched, seconds
+
+
+def check_csvs_finite(folder) -> int:
+    """Every CSV under folder has a row besides its header, and every number
+    in it is finite. Returns the count of CSVs."""
+    import numpy as np
+    import pandas as pd
+    count = 0
+    for path in sorted(Path(folder).rglob('*.csv')):
+        cells = pd.read_csv(path, header=None, dtype=str, keep_default_na=False).to_numpy().ravel()
+        numbers = []
+        for cell in cells:
+            try:
+                numbers.append(float(cell))
+            except ValueError:
+                pass
+        require(len(cells) > 1 and numbers and bool(np.isfinite(numbers).all()),
+                f'{path}: empty, or a number that is not finite')
+        count += 1
+    return count
+
+
+def group_summary(records, rounds, size, label):
+    """Print the one fold group of `size` descents that run.gpr trained in
+    lockstep, each round one launch (batched while two descents or more are
+    live), its rounds' value+grad time against the host's, and the folds
+    calibrated alone and the test()s."""
+    from collections import Counter
+    groups = [r for r in records if r['step'] == 'fold-batched']
+    require(len(groups) == 1 and groups[0]['size'] == size and groups[0]['batched'] > 0,
+            (label, 'no fold group of', size, 'through batched launches', groups))
+    group = groups[0]
+    require(len(rounds) == group['launches'],
+            ('a round is not one launch', len(rounds), group['launches']))
+    iterations = [i for fold in group['iterations'] for i in fold]
+    stops = Counter(stop for fold in group['stops'] for stop in fold)
+    print(f'{label}: fold group of {group["folds"]} folds, {group["size"]} descents in lockstep: '
+          f'{group["seconds"]:.2f} s, {len(rounds)} rounds (one launch each, '
+          f'{group["batched"]} of them batched), {1e3 * group["seconds"] / len(rounds):.1f} ms a '
+          f'round; iterations min / median / max {min(iterations)} / '
+          f'{statistics.median(iterations)} / {max(iterations)}; scipy stops {dict(stops)}',
+          flush=True)
+    members = [n for n, _ in rounds]
+    value_and_grad = sum(seconds for _, seconds in rounds)
+    host = group['seconds'] - value_and_grad
+    full = [1e3 * seconds for n, seconds in rounds if n == size] or [0.0]
+    print(f'  {len(rounds)} rounds of {min(members)}-{max(members)} live descents (mean '
+          f'{statistics.mean(members):.1f}; a round of all {size} {statistics.median(full):.1f} ms, '
+          f'median): value+grad {value_and_grad:.2f} s in all, so the host\'s share of the group '
+          f'{host:.2f} s, {1e3 * host / len(rounds):.1f} ms a round', flush=True)
+    for r in records:
+        if r['step'] == 'calibrate' and 'group' not in r:
+            print(f'  fold.{r["k"]} {r["name"]} calibrated alone: {r["seconds"]:.2f} s, '
+                  f'{r["launches"]} launches', flush=True)
+    tests = [r for r in records if r['step'] == 'test']
+    print(f'  test() of {len(tests)} folds: {sum(r["seconds"] for r in tests):.2f} s, '
+          f'{sum(r["launches"] for r in tests)} launches', flush=True)
+
+
+def likelihood_card_against_cpu(torch, repo, name='gpr.v.a'):
+    """regression.gls and MOGaussian (predict_log_density and
+    variational_expectations over the dense (L*n, L*n) latent covariance, the
+    quadrature predict_log_density per point) on fold 0's test predictions,
+    float64, on the card against the CPU, within LIKELIHOOD_TOL of each
+    result's largest entry. The latent variance is the predictive one less the
+    trained noise; gls fits the first output linearly in OAKLEY2004's active
+    inputs, weighted by its predictive variance."""
+    import numpy as np
+    import pandas as pd
+    from romcomma_tpu_torch.data.storage import Fold
+    from romcomma_tpu_torch.models.gpr import MOGP
+    from romcomma_tpu_torch.user import regression
+    fold = Fold(repo, 0)
+    test = pd.read_csv(fold.folder / name / 'test.csv', header=[0, 1], index_col=0)
+    X, Y, mean, sd = (test[h].to_numpy(dtype=float) for h in ('X', 'Y', 'Mean', 'SD'))
+    likelihood = MOGP(name, fold, is_read=True, is_covariant=False, is_isotropic=False).likelihood
+    fvar = np.clip(sd ** 2 - likelihood.data.variance.np[0], 1e-12, None)
+    latent = dict(Fmu=mean.T.reshape(-1), Fvar=np.diag(fvar.T.reshape(-1)), Y=Y.T.reshape(-1))
+    results = {}
+    for on in (CARD, 'cpu'):
+        device = torch.device(on)
+        mo = likelihood.mo_gaussian(dtype=torch.float64, on=device)
+        beta, cov_beta = regression.gls(X[:, :ACTIVE_INPUTS], Y[:, :1], np.diag(sd[:, 0] ** 2),
+                                        on=device)
+        results[on] = {'predict_log_density': mo.predict_log_density(**latent),
+                       'variational_expectations': mo.variational_expectations(**latent),
+                       'quad_predict_log_density': mo.quad_predict_log_density(mean, fvar, Y),
+                       'gls beta': beta, 'gls covariance': cov_beta}
+    worst = 0.0
+    for key, want in results['cpu'].items():
+        got = results[CARD][key]
+        require(got.device.type == CARD and got.dtype == torch.float64, key)
+        error = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        require(math.isfinite(error), (key, got, want))
+        worst = max(worst, error)
+        print(f'  {key}: card against CPU {error:.3e} of its largest entry (tol {LIKELIHOOD_TOL})',
+              flush=True)
+    require(worst <= LIKELIHOOD_TOL, ('likelihood and gls, card against CPU', worst))
+    print(f'likelihood layer and gls on fold 0\'s {len(Y)} test predictions (L*n = {Y.size}): '
+          f'worst {worst:.3e}', flush=True)
+    return worst
+
+
+def csv_phase(torch, user, gram_kernels):
+    """Phase 11: csv_script's workflow through its CLI (-r -a, the defaults),
+    on a user CSV of N=CSV_N rows; each fold and output's LML within phase 4's
+    first-order bound, the GSA tree and every CSV finite; the fold group's
+    rounds, their value+grad and host time, peak memory; the stacked GSA of
+    the 20 folds against run.gsa's per-fold loop on a copy; the likelihood
+    layer and gls card against CPU. Returns (launches, batched launches,
+    seconds)."""
+    import numpy as np
+    import pandas as pd
+    from romcomma_tpu_torch import csv_script
+    from romcomma_tpu_torch.data.storage import Repository
+    shutil.rmtree(CSV_ROOT, ignore_errors=True)
+    np_seed(SEED)
+    noise = user.sample.GaussianNoise.Variance(L=len(user.functions.OAKLEY2004), magnitude=0.04)
+    sampled = user.sample.Function(CSV_ROOT / 'sampled', user.sample.DOE.latin_hypercube,
+                                   user.functions.OAKLEY2004, N=CSV_N, M=CSV_M,
+                                   noise_variance=noise, overwrite_existing=True, seed=SEED).repo
+    csv, root = CSV_ROOT / 'oakley2004.csv', CSV_ROOT / 'root'
+    shutil.copyfile(sampled.folder / 'data.csv', csv)        # a user's CSV, X and Y columns
+    require(csv_script.K == CSV_K, csv_script.K)
+    random.seed(SEED)                                        # the fold assignment
+    records, rounds, gsas, launches, batched, seconds = drive_cli(
+        torch, gram_kernels, 'csv_script -r -a',
+        lambda: csv_script.main(['-r', '-a', str(csv), str(root)]))
+    repo = Repository(root)
+    require(list(repo.folds) == list(range(CSV_K + 1)), list(repo.folds))
+    group_summary(records, rounds, CSV_K * 3, 'run.gpr')
+    worst = check_lml_bounds(torch, repo, ['gpr.v.a'], echo=False)
+    print(f'LML of {len(repo.folds)} folds x 3 outputs: worst |f32 kernel - f64 plain| / bound '
+          f'{worst:.3e}', flush=True)
+    print_gsa_records(gsas)
+    groups = [r['group'] for r in gsas]
+    require(groups == [CSV_K] * CSV_K + [1],
+            f'the {CSV_K} equal folds did not run as one stacked pass: {groups}')
+    check_gsa_tree(repo, M_=CSV_M)
+    print(f'{check_csvs_finite(root)} CSVs written and finite under the CLI\'s root', flush=True)
+    likelihood_card_against_cpu(torch, repo)
+    # The per-fold loop on a copy of the trained tree, against the stacked pass.
+    per_fold_root = CSV_ROOT / 'per_fold'
+    shutil.copytree(root, per_fold_root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    user.run.gsa('gpr', Repository(per_fold_root), kinds=user.run.GSA.ALL_KINDS,
+                 fold_parallel=False, **GSA_OPTIONS)
+    torch.cuda.synchronize()
+    per_fold_s = time.perf_counter() - t0
+    apart = 0.0
+    for k in range(CSV_K):
+        for kind in KINDS:
+            for csv_name in 'SV':
+                path = Path(f'fold.{k}') / 'gpr.v.a' / 'gsa' / kind / f'{csv_name}.csv'
+                a, b = (pd.read_csv(r / path, index_col=[0, 1]).to_numpy()
+                        for r in (root, per_fold_root))
+                apart = max(apart, float(np.abs(a - b).max() / np.abs(b).max()))
+    stacked_s, improper_s = gsas[0]['seconds'], gsas[-1]['seconds']
+    faster = 'stacked' if stacked_s < per_fold_s - improper_s else 'per-fold'
+    print(f'GSA of the {CSV_K} proper folds: one stacked pass {stacked_s:.2f} s against '
+          f'run.gsa\'s per-fold loop (fold_parallel=False, all {CSV_K + 1} folds) '
+          f'{per_fold_s:.2f} s, of which the improper fold ~{improper_s:.2f} s; so the per-fold '
+          f'loop of the {CSV_K} ~{per_fold_s - improper_s:.2f} s; {faster} is the faster; S and V '
+          f'of the two within {apart:.3e} of their largest entry (6 decimals written)', flush=True)
+    return launches, batched, seconds
+
+
+def sweep_phase(torch, user, gram_kernels):
+    """Phase 12: benchmark_script's sweep cell 325 through its CLI's own
+    selection (-f -r -s -M 19 of 940 processes): ALL (L=9), N=8000, K=-2; each
+    fold and output's LML within phase 4's first-order bound (the design is an
+    unseeded Latin hypercube, so nothing here depends on the draw), the GSA
+    tree and every CSV finite. Returns (launches, batched launches, seconds)."""
+    from romcomma_tpu_torch import benchmark_script
+    from romcomma_tpu_torch.data.storage import Repository
+    shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    np_seed(SEED)                                            # the noise variance's draw
+    records, rounds, gsas, launches, batched, seconds = drive_cli(
+        torch, gram_kernels, f'benchmark_script {" ".join(SWEEP_ARGV)}',
+        lambda: benchmark_script.main(SWEEP_ARGV + [str(SWEEP_ROOT)]))
+    repo = Repository(SWEEP_ROOT / SWEEP_FOLDER)
+    require(list(repo.folds) == [0, 1] and repo.L == SWEEP_L and repo.M == SWEEP_M,
+            (list(repo.folds), repo.L, repo.M))
+    group_summary(records, rounds, 2 * SWEEP_L, 'run.gpr')
+    worst = check_lml_bounds(torch, repo, ['gpr.v.a'], echo=False)
+    print(f'LML of 2 folds x {SWEEP_L} outputs: worst |f32 kernel - f64 plain| / bound '
+          f'{worst:.3e}', flush=True)
+    print_gsa_records(gsas)
+    require([r['group'] for r in gsas] == [2, 2], [r['group'] for r in gsas])
+    check_gsa_tree(repo, M_=SWEEP_M, L_=SWEEP_L)
+    print(f'{check_csvs_finite(SWEEP_ROOT)} CSVs written and finite under the CLI\'s root',
+          flush=True)
+    return launches, batched, seconds
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2117,6 +2466,17 @@ def main() -> int:
     sequential_phase(torch, user, gram_kernels, repo)
     print(f'phase 10: {time.perf_counter() - t:.2f} s', flush=True)
 
+    t = phase(f'11. csv_script -r -a on a user CSV (OAKLEY2004, N={CSV_N}, M={CSV_M}, L=3): '
+              f'K={CSV_K} folds in lockstep, the improper fold, GSA with errors; float32')
+    csv_launches, csv_batched, csv_seconds = csv_phase(torch, user, gram_kernels)
+    print(f'phase 11: {time.perf_counter() - t:.2f} s (csv_script {csv_seconds:.2f} s)', flush=True)
+
+    t = phase(f'12. benchmark_script {" ".join(SWEEP_ARGV)}: sweep cell 325 (ALL, L={SWEEP_L}, '
+              f'M={SWEEP_M}, N=8000, noise 0.1, K=-2); float32')
+    sweep_launches, sweep_batched, sweep_seconds = sweep_phase(torch, user, gram_kernels)
+    print(f'phase 12: {time.perf_counter() - t:.2f} s (benchmark_script {sweep_seconds:.2f} s)',
+          flush=True)
+
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
     batch_ms, batch_plain_ms, batch_bound_ms, batch_bound_by = batch_times[(6, 4096, 4096, 30)]
     print(card)
@@ -2125,14 +2485,15 @@ def main() -> int:
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
         'launches': (launches + covariant_launches + north_star_launches + large_launches
-                     + sobol_launches + active_launches),
+                     + sobol_launches + active_launches + csv_launches + sweep_launches),
         'max_abs_err': max_err,
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}, {
         'name': 'unit_gram (batched launch)', 'route': 'cuda',
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:84',
-        'launches': MAIN_PATH['batched_launches'] + MAIN_PATH['large_batched_launches'],
+        'launches': (MAIN_PATH['batched_launches'] + MAIN_PATH['large_batched_launches']
+                     + csv_batched + sweep_batched),
         'max_abs_err': batch_err,
         'ms': batch_ms, 'plain_ms': batch_plain_ms, 'bound_ms': batch_bound_ms,
         'bound_by': batch_bound_by, 'library_ms': None}]}))

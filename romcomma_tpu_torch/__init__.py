@@ -11,8 +11,9 @@ same CSV + meta.json tree:
                  unit-gram kernel in ``csrc/unit_gram.cu``), Cholesky and
                  triangular solves, scipy L-BFGS-B on a torch objective.
   - ``models``   the variant and covariant multi-output GPs: LML,
-                 calibration, prediction, posterior factors, and the
-                 persistent GPR/MOGP wrappers.
+                 calibration, prediction, posterior factors, the
+                 persistent GPR/MOGP wrappers, and the likelihood layer
+                 (Gauss-Hermite quadrature, MOGaussian).
   - ``parallel`` the large-N variant route: a one-device DistributedGP.
   - ``gsa``      closed-form Sobol' indices with standard errors, in float64:
                  the calibrators (the rotated-basis one included), their
@@ -20,15 +21,18 @@ same CSV + meta.json tree:
                  Sobol models.
   - ``rom``      Reduced Order Modelling: the alternating input-basis
                  rotation loop (active subspace or leading Sobol' index).
-  - ``user``     run.gpr, run.gsa, run.rom, sampling, test functions,
-                 results collection.
+  - ``user``     run.gpr, run.gsa, run.rom (the equal-shape folds of a
+                 repository batched by default), sampling and its CLI, test
+                 functions, results collection and copy, GLS regression.
 
-``north_star`` runs the N=20000, M=30 north-star workload on the card, and
-``rom_scale`` the N=8192, M=10 planted-subspace ROM.
+The entry points: ``csv_script`` (a user's CSV through k-fold GPR and GSA)
+and ``benchmark_script`` (the M x N x noise sweep), the ports of the
+repository's root scripts; ``installation_test``; ``north_star`` runs the
+N=20000, M=30 north-star workload on the card, and ``rom_scale`` the N=8192,
+M=10 planted-subspace ROM.
 
-Not ported yet: the fold-batched descent and GSA, the per-slice GSA error
-path, models/likelihoods.py and Kernel.TypeFromParameters, the rest of user/
-and the multi-device engines.
+Not ported yet: the large route's output-stacked GSA (its indices come from
+a loop over outputs) and the multi-device engines.
 """
 
 from romcomma_tpu_torch import base, data, ops, models, gsa, parallel, rom, user  # noqa: F401

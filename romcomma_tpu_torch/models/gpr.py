@@ -28,6 +28,7 @@ from romcomma_tpu_torch.base.definitions import (FLOAT, LIKELIHOOD_VARIANCE_FLOO
 from romcomma_tpu_torch.data.storage import Fold, Frame
 from romcomma_tpu_torch.models import gp
 from romcomma_tpu_torch.models.kernels import Kernel, RBF
+from romcomma_tpu_torch.models.likelihoods import MOGaussian
 from romcomma_tpu_torch.models.params import (covariant_constrain, covariant_init,
                                               covariant_mask, variant_constrain, variant_init,
                                               variant_mask)
@@ -57,6 +58,14 @@ class Likelihood(Model):
     def calibrate(self, **kwargs) -> Dict[str, Any]:
         """Resolve trainability flags only (reference gpr/models.py:71-80)."""
         return dict(self.META) | kwargs
+
+    def mo_gaussian(self, **kwargs) -> MOGaussian:
+        """The math-layer MOGaussian over this model's stored noise variance
+        (reference gpr/models.py:59: ``mf.likelihoods.MOGaussian(...)``).
+        A variant (1, L) frame becomes the diagonal (L, L) covariance; kwargs
+        go to MOGaussian (n_quad, dtype, on)."""
+        v = self._data.variance.df.to_numpy(copy=True)
+        return MOGaussian(np.diag(v[0]) if v.shape[0] == 1 else v, **kwargs)
 
 
 class GPR(Model):

@@ -40,6 +40,15 @@ class Kernel(Model):
                 return kernel_type
         raise TypeError(f'Kernel TypeIdentifier {type_identifier!r} unrecognized.')
 
+    @classmethod
+    def TypeFromParameters(cls, parameters: 'Kernel.Data') -> Type['Kernel']:
+        """The Kernel subclass a Data parameter set belongs to (reference
+        gpr/kernels.py:90-104)."""
+        for kernel_type in cls.__subclasses__():
+            if isinstance(parameters, kernel_type.Data):
+                return kernel_type
+        raise TypeError(f'Kernel Parameters type {type(parameters).__name__} unrecognized.')
+
     def __init__(self, folder: Path | str, read_data: bool = False, **kwargs):
         super().__init__(folder, read_data, **kwargs)
         variance_shape = self._data.variance.df.shape

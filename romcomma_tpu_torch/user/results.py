@@ -11,7 +11,14 @@ from typing import Any, Dict, Union
 import numpy as np
 import pandas as pd
 
+from romcomma_tpu_torch.base.classes import Data
 from romcomma_tpu_torch.data.storage import Repository, Fold
+
+
+def copy(src: Path | str, dst: Path | str) -> Path:
+    """Copy a folder destructively (reference results.py:32-42)."""
+    Data.copy(src, dst)
+    return dst
 
 
 class Collect:

@@ -129,11 +129,12 @@ def test_dispatch_sends_only_float32_cuda_to_the_kernel(cuda):
 
 #: (n, A, B, M, u is v): the main path's batches (two 4096-row folds x 3
 #: outputs; phase 8b's two 5120-row folds x 3; one fold's 3 outputs at 8192),
-#: ragged two-operand batches (masked and TMA stores, several M chunks), and
-#: a batch of one.
+#: ragged two-operand batches (masked and TMA stores, several M chunks), a
+#: batch of one, and large batch counts: csv_script's 20 folds x 3 outputs
+#: (at 3800 rows, ragged) and benchmark_script's 2 folds x 9 outputs (M=19).
 BATCHES = [(6, 4096, 4096, 30, True), (6, 5120, 5120, 30, True), (3, 8192, 8192, 30, True),
            (3, 4097, 1000, 70, False), (2, 37, 61, 5, False), (4, 150, 150, 7, True),
-           (1, 300, 200, 30, False)]
+           (1, 300, 200, 30, False), (60, 3800, 3800, 30, True), (18, 1000, 1000, 19, True)]
 
 
 def _batch(n, A, B, M, shared, on, seed=0):

@@ -4,7 +4,9 @@ variant again through the large-N route, DistributedGP), runs their GSA
 through run.gsa (the variant with standard errors) and one ROM.calibrate, on
 the CPU it asks for, without importing jax or romcomma_tpu; then run.gpr and
 run.gsa on the fold-batched path (fold_parallel=True: the lockstep descents,
-the stacked GSA) on a repository of two equal folds."""
+the stacked GSA) on a repository of two equal folds; then the likelihood
+layer, regression.gls and the CSV CLI's run (imported with the sweep CLI),
+with the CPU pinned, as a Python caller pins it, around csv_script.run."""
 
 import subprocess
 import sys
@@ -42,6 +44,15 @@ with user.contexts.Environment('port', device='CPU'):
                  fold_parallel=True)
     user.run.gsa('gpr', pair, is_covariant=False, is_isotropic=False, is_error_calculated=True,
                  fold_parallel=True)
+    from romcomma_tpu_torch import benchmark_script, csv_script
+    from romcomma_tpu_torch.models.likelihoods import MOGaussian
+    MOGaussian(np.eye(3)).predict_log_density(np.zeros(6), np.eye(6), np.ones(6))
+    user.regression.gls(X, X[:, :1], np.eye(16))
+    df.to_csv({str(tmp_path / 'data.csv')!r})
+from romcomma_tpu_torch.base.definitions import pinned_device
+with pinned_device(torch.device('cpu')):
+    csv_script.run({str(tmp_path / 'csv')!r}, {str(tmp_path / 'data.csv')!r}, gpr=True, gsa=True,
+                   ignore_exceptions=False, k=2)
 assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
 assert 'romcomma_tpu_torch.rom.rom' in sys.modules
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
@@ -62,3 +73,6 @@ print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu'
         assert (tmp_path / 'repo' / 'fold.0' / 'rom' / csv).exists()
     for k in (0, 1, 2):
         assert (tmp_path / 'pair' / f'fold.{k}' / 'gpr.v.a' / 'gsa' / 'total' / 'T.csv').exists()
+        assert (tmp_path / 'csv' / f'fold.{k}' / 'gpr.v.a' / 'gsa' / 'total' / 'W.csv').exists()
+    for csv in ('gpr/test_summary.csv', 'gsa/T.csv'):
+        assert (tmp_path / 'csv' / csv).exists()
