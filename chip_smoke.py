@@ -109,12 +109,40 @@ Phases (each prints its result and its time; none catches its own failure):
  12. the sweep CLI: ``benchmark_script -f -r -s -M 19 --num-processes 940
      --process-id 325 <root>``, whose own selection runs the one cell of
      noise 0.1 and N=8000 (ALL, L=9, K=-2: two 4000-row folds, 18 descents
-     in lockstep); the same readings and checks.
+     in lockstep), its Latin hypercube drawn from SEED; the same readings and
+     checks.
+ 13. the multi-device variant route (parallel.distributed's mesh engines,
+     parallel.cyclic_deferred, gsa.mesh) at the north star's problem (N=20000,
+     M=30, float32, phase 8a's optimum):
+     a. the kernel at the mesh tiles' shapes ((20224^2, 30), the ring's one
+        tile; (3584^2, 30) two operands, 'cyclic2''s pair tiles) against its
+        plain version, timed, with their bounds; the one-device reference
+        (ExactLML float32 and float64, the float64 posterior, the indices
+        with T and their one-ulp spreads); then, in an NCCL group of this
+        process alone (world size 1), DistributedGP with engine='cyclic' and
+        'cyclic2' over make_n_mesh(): at the north star's start (MESH_START)
+        its float32 LML within phase 4's bound of ExactLML's; at phase 8a's
+        optimum its ring gram held to the one-device gram (VALUE_TOL), its
+        float32 LML, dls, ds2 and dnoise within MESH_F32_MULTIPLES of
+        ExactLML float32's own distance from float64 ExactLML, and its
+        float64 ones within MESH_F64_SHARE of it; its float64 posterior alpha and predictions
+        within CARD_CPU_TOL of the one-device route's, its first-order and
+        total indices (the V pass and W/T sweep over the mesh), S and T
+        squared, within ULP_SPREADS of their one-ulp spreads (S itself moves
+        by ~1e-6 under a one-ulp move there); value+grad and factor ms
+        (median of 5) beside the one-device route's, the value+grad's peak
+        memory above what was held before it; a calibrate of 5 iterations
+        from the north star's start, its unit-gram launches counted by shape;
+        then graft_entry.dryrun_multichip(1);
+     b. where the machine has two cards or more, both engines on min(4,
+        cards) spawned NCCL ranks, held as in 13a and rank to rank bit for
+        bit; else a line saying why it did not run.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
 of phase 4 and of phase 7, the north star and run.gpr of phase 8, the two
-ROMs of phase 9 and the CLIs of phases 11 and 12, each counted from 0 just
+ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines'
+calibrates of phase 13, each counted from 0 just
 before it runs, and, as a path of the same kernel, its batched launches among
 them (phases 4, 8b, 11 and 12). Exits non-zero, printing no result, where
 there is no CUDA device or no checkout around the script.
@@ -1540,6 +1568,7 @@ def north_star_phase(torch, gram_kernels):
     require(error <= NORTH_STAR_S1_TOL, (out['S1_first3'], NORTH_STAR_S1))
     dgp, x, y = state['dgp'], state['x_dev'], state['y_dev']
     hypers = tuple(state[k] for k in ('ls', 's2', 'noise'))
+    MAIN_PATH['north_star_hypers'] = tuple(h.detach().cpu().numpy() for h in hypers)
     dgp64 = DistributedGP(N_, dtype=np.float64)
     x64s, y64s = dgp64.stage(state['X'], state['Y'])
     at_optimum = dgp64.lml(*hypers, x64s, y64s).item()
@@ -1831,18 +1860,12 @@ def distributed_card_against_cpu(torch):
                      for h in hypers)
 
     moved = [distributed_tables(torch, (X, Y, Xs, nudged(d)), 'cpu') for d in range(ULP_DRAWS)]
-
-    def distance(key, got, want):
-        if key.endswith(' T'):
-            got, want = got * got, want * want
-        return float(np.abs(got - want).max()) / (float(np.abs(want).max()) or 1.0)
-
     readings, failures = [], []
     for key, want in cpu.items():
         require(bool(np.isfinite(card[key]).all()), f'{key} is not finite on the card')
-        apart = distance(key, card[key], want)
+        apart = _table_distance(key, card[key], want)
         if key.endswith(' T'):
-            ulps = max(distance(key, m[key], want) for m in moved)
+            ulps = max(_table_distance(key, m[key], want) for m in moved)
             ratio = apart / ulps if ulps else (math.inf if apart else 0.0)
             readings.append(f'{key} T^2 {apart:.2e} = {ratio:.3f} spreads of {ulps:.2e}')
             if ratio > ULP_SPREADS:
@@ -2361,16 +2384,26 @@ def csv_phase(torch, user, gram_kernels):
 def sweep_phase(torch, user, gram_kernels):
     """Phase 12: benchmark_script's sweep cell 325 through its CLI's own
     selection (-f -r -s -M 19 of 940 processes): ALL (L=9), N=8000, K=-2; each
-    fold and output's LML within phase 4's first-order bound (the design is an
-    unseeded Latin hypercube, so nothing here depends on the draw), the GSA
-    tree and every CSV finite. Returns (launches, batched launches, seconds)."""
+    fold and output's LML within phase 4's first-order bound, the GSA tree and
+    every CSV finite. The CLI's Latin hypercube takes its draw from SEED, as
+    the noise and the folds do, so the cell is the same in every run. Returns
+    (launches, batched launches, seconds)."""
     from romcomma_tpu_torch import benchmark_script
     from romcomma_tpu_torch.data.storage import Repository
     shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
-    np_seed(SEED)                                            # the noise variance's draw
-    records, rounds, gsas, launches, batched, seconds = drive_cli(
-        torch, gram_kernels, f'benchmark_script {" ".join(SWEEP_ARGV)}',
-        lambda: benchmark_script.main(SWEEP_ARGV + [str(SWEEP_ROOT)]))
+    design = benchmark_script.DOE
+
+    def latin_hypercube(N_, M_, **kwargs):
+        return design(N_, M_, seed=SEED, **kwargs)
+
+    np_seed(SEED)                                            # the noise and the folds
+    benchmark_script.DOE = latin_hypercube
+    try:
+        records, rounds, gsas, launches, batched, seconds = drive_cli(
+            torch, gram_kernels, f'benchmark_script {" ".join(SWEEP_ARGV)}',
+            lambda: benchmark_script.main(SWEEP_ARGV + [str(SWEEP_ROOT)]))
+    finally:
+        benchmark_script.DOE = design
     repo = Repository(SWEEP_ROOT / SWEEP_FOLDER)
     require(list(repo.folds) == [0, 1] and repo.L == SWEEP_L and repo.M == SWEEP_M,
             (list(repo.folds), repo.L, repo.M))
@@ -2384,6 +2417,393 @@ def sweep_phase(torch, user, gram_kernels):
     print(f'{check_csvs_finite(SWEEP_ROOT)} CSVs written and finite under the CLI\'s root',
           flush=True)
     return launches, batched, seconds
+
+
+# --------------------------------------------------------------------------- #
+# Phase 13: the multi-device variant route over an NCCL group
+# --------------------------------------------------------------------------- #
+
+#: The mesh engines, each at the north star's problem (N=20000, M=30,
+#: float32) from phase 8a's optimum.
+MESH_ENGINES = ('cyclic', 'cyclic2')
+#: Value+grads and factorizations timed per engine (the median is reported),
+#: and the iterations of each engine's calibrate.
+MESH_TIMED, MESH_MAXITER = 5, 5
+#: The kernel's shapes on the mesh path of one rank: the ring's one tile, the
+#: padded rows against themselves (Npad = 20224 for B=256), and the pair
+#: tiles of 'cyclic2' (q B = 3584 rows, two operands).
+MESH_TILE_SHAPES = ((20224, 20224, 30, True), (3584, 3584, 30, False))
+#: Ranks of phase 13b, where the machine has several cards.
+MESH_RANKS = 4
+#: The north star's own start (ls 2, s2 1, noise 0.05), where phase 8a's
+#: descent and each engine's calibrate begin. There each engine's float32
+#: LML is held to ExactLML float32's within phase 4's bound (s2/noise = 20);
+#: every other check of phase 13 is made at phase 8a's optimum (s2/noise
+#: ~ 1e3), where the large route's descent ends and that bound does not hold
+#: for ExactLML itself (its float32 LML lies 61 from float64 there).
+MESH_START = (2.0, 1.0, 0.05)
+MESH_KINDS = ('first_order', 'total')
+#: The parts of an LML evaluation that phase 13 holds apart: the value, dls
+#: (its largest entry), ds2 and dnoise.
+MESH_PARTS = ('LML', 'dls', 'ds2', 'dnoise')
+#: Each engine's float32 LML evaluation against float64 ExactLML at the
+#: optimum, part by part: within these multiples of ExactLML float32's own
+#: distance from float64 ExactLML there. Set from the H100's readings
+#: (PERF.md): the engines read at most 1.18, 1.08, 36.9 and 0.95 times it;
+#: their float32 ds2 is the least accurate, since K^-1, formed blockwise,
+#: carries more rounding than cholesky_inverse's into sum(Bbar o Knn).
+MESH_F32_MULTIPLES = (4.0, 4.0, 100.0, 4.0)
+#: Each engine's float64 LML evaluation against float64 ExactLML at the
+#: optimum: within this share of ExactLML float32's distance, part by part
+#: (float64 rounds 2^-29 ~ 1.9e-9 as finely as float32; read: <= 2.5e-9).
+MESH_F64_SHARE = 1e-6
+
+
+@contextmanager
+def nccl_group(torch):
+    """This process alone as a process group over NCCL on card 0 (world
+    size 1), initialized from a file under build/; destroyed on exit."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    (ROOT / 'build').mkdir(exist_ok=True)
+    folder = Path(tempfile.mkdtemp(dir=ROOT / 'build'))
+    dist.init_process_group('nccl', init_method=f'file://{folder / "group"}', rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+@contextmanager
+def launch_shapes(gram_kernels):
+    """Count the unit-gram launches by operand shapes for the body."""
+    import collections
+    shapes, original = collections.Counter(), gram_kernels.unit_gram_cuda
+
+    def recorded(u, v):
+        out = original(u, v)
+        shared = u.data_ptr() == v.data_ptr() and u.shape == v.shape
+        shapes[(tuple(u.shape), tuple(v.shape), 'u is v' if shared else 'two operands')] += 1
+        return out
+
+    gram_kernels.unit_gram_cuda = recorded
+    try:
+        yield shapes
+    finally:
+        gram_kernels.unit_gram_cuda = original
+
+
+def median_ms(torch, fn, n=MESH_TIMED):
+    """The median of n host-clock ms of fn, each ending in a synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_mesh_tiles(torch, gram_kernels):
+    """The kernel at the mesh path's shapes against its plain version, timed
+    (CUDA events), with its bound. Returns {shape: (ms, plain ms, bound ms,
+    bound by, max |kernel - plain|)}."""
+    times = {}
+    for A, B, M_, shared in MESH_TILE_SHAPES:
+        u, v = unit_inputs(torch, A, B, M_, seed=A + 1, shared=shared)
+        err = (gram_kernels.unit_gram_cuda(u, v) - gram_kernels.unit_gram_plain(u, v)
+               ).abs().max().item()
+        require(err <= VALUE_TOL, (A, B, M_, shared, err))
+        (kernel,), (plain,) = (spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(u, v)],
+                                         samples=20, calls=5),
+                               spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(u, v)],
+                                         samples=5, calls=2))
+        bound, bound_by = forward_bound_ms(A, B, M_, shared)
+        times[(A, B, M_, shared)] = (kernel[1], plain[1], bound, bound_by, err)
+        print(f'mesh tile ({A}, {B}, {M_}{", u is v" if shared else ", two operands"}): max '
+              f'|kernel - plain| {err:.3e} (tol {VALUE_TOL}); forward ms kernel min / median / '
+              f'max {kernel[0]:.4f} / {kernel[1]:.4f} / {kernel[2]:.4f} (20 samples of 5), plain '
+              f'median {plain[1]:.4f}; bound {bound:.4f} ms ({bound_by}), kernel at '
+              f'{bound / kernel[1]:.3f} of it', flush=True)
+        del u, v
+    return times
+
+
+def _value_and_grad(torch, gp, x, y, at):
+    """[LML, dls, ds2, dnoise] of gp at the hyperparameters `at`, float64."""
+    p = [t.detach().clone().requires_grad_(True) for t in at]
+    value = gp.lml(*p, x, y)
+    return [value.detach().double()] + [g.double() for g in torch.autograd.grad(value, p)]
+
+
+def _indices(gp, hypers, x, y, X):
+    """{'<kind> S' | '<kind> T': (M,)} of gp: both kinds with non-partial T."""
+    import numpy as np
+    out = gp.sobol_indices(*hypers, x, y, X, kind=MESH_KINDS, error=True, is_T_partial=False)
+    return {f'{kind} {key}': np.array([out[key][kind][m] for m in sorted(out[key][kind])])
+            for key in ('S', 'T') for kind in MESH_KINDS}
+
+
+def _table_distance(key, got, want):
+    """max |got - want| / max |want|; of the squares for T."""
+    import numpy as np
+    if key.endswith(' T'):
+        got, want = got * got, want * want
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max()) or 1.0)
+
+
+def _apart(got, want) -> list:
+    """max |got - want| of each of MESH_PARTS."""
+    return [float((g - w).abs().max()) for g, w in zip(got, want)]
+
+
+def _parts(values) -> str:
+    """values, one for each of MESH_PARTS, named."""
+    return ', '.join(f'{part} {v:.3e}' for part, v in zip(MESH_PARTS, values))
+
+
+def mesh_reference(torch, X, Y, Xs, hypers):
+    """Phase 13's one-device reference at phase 8a's optimum ``hypers``: the
+    float32 ExactLML value and gradient (and its median ms), the float64 one
+    on the same float32-rounded data, the float32 one's distance from it
+    part by part and the float64 parts' sizes; the float32 LML at
+    MESH_START; the float64 posterior alpha and predictions, the indices
+    with T, and their spread under ULP_DRAWS one-ulp moves of the
+    hyperparameters."""
+    import numpy as np
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    N_ = len(X)
+    one = DistributedGP(N_, CARD, dtype=np.float32)
+    x, y = one.stage(X, Y)
+    at32 = tuple(torch.tensor(h, dtype=torch.float32, device=CARD) for h in hypers)
+    ref = {'f32': _value_and_grad(torch, one, x, y, at32),
+           'ms': median_ms(torch, lambda: _value_and_grad(torch, one, x, y, at32))}
+    one64 = DistributedGP(N_, CARD, dtype=np.float64)
+    x64, y64 = one64.stage(x, y)
+    ref['f64'] = _value_and_grad(torch, one64, x64, y64, tuple(t.double() for t in at32))
+    ref['apart'] = _apart(ref['f32'], ref['f64'])
+    ref['size'] = [float(w.abs().max()) for w in ref['f64']]
+    ref['start'] = tuple(torch.tensor(h, dtype=torch.float32, device=CARD)
+                         for h in (np.full(X.shape[1], MESH_START[0]), *MESH_START[1:]))
+    with torch.no_grad():
+        ref['start f32'] = one.lml(*ref['start'], x, y).item()
+    require(all(a > 0.0 for a in ref['apart']), ('ExactLML float32 equals float64', ref['apart']))
+    del one64, x64, y64
+    ref['alpha'] = one.posterior_alpha(*hypers, x, y)[0].cpu().numpy()
+    ref['mean'], ref['var'] = (t.cpu().numpy() for t in one.predict(*hypers, x, y, Xs))
+    ref['indices'] = _indices(one, hypers, x, y, X)
+
+    def nudged(draw):
+        g = np.random.default_rng(2000 + draw)
+        return tuple(np.nextafter(np.float64(h), np.where(g.random(np.shape(h)) < 0.5,
+                                                          -np.inf, np.inf)) for h in hypers)
+
+    moved = [_indices(one, nudged(d), x, y, X) for d in range(ULP_DRAWS)]
+    ref['spread'] = {key: max(_table_distance(key, m[key], want) for m in moved)
+                     for key, want in ref['indices'].items()}
+    ref['x'], ref['y'], ref['at32'] = x, y, at32
+    return ref
+
+
+def mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers, ref):
+    """Phase 13a, one engine on the mesh: at MESH_START its float32 LML
+    against ExactLML's; at phase 8a's optimum ``hypers`` its ring gram
+    against the one-device gram, its float32 and float64 LML and gradient
+    against float64 ExactLML's, its float64 posterior, predictions and
+    indices against the one-device route's; its factor and value+grad timed;
+    then its calibrate from MESH_START counted. Returns the engine's record."""
+    import numpy as np
+    from romcomma_tpu_torch.ops.gram import rbf_gram
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP, from_stored
+    N_ = len(X)
+    gp = DistributedGP(N_, mesh, dtype=np.float32, engine=engine)
+    x, y = gp.stage(X, Y)
+    at32 = ref['at32']
+    s2 = float(at32[1])
+    with torch.no_grad():               # one rank: stored and global order are the original
+        K = gp._ops.gram(x, *at32)
+        K1 = rbf_gram(ref['x'], ref['x'], at32[0], at32[1])
+        K1.diagonal().add_(at32[2])
+        gram_err = (K[:N_, :N_] - K1).abs().max().item()
+        padding = K[N_:].clone()
+        padding[:, N_:] -= torch.eye(K.shape[1] - N_, device=CARD)
+        padding_err = padding.abs().max().item() + K[:N_, N_:].abs().max().item()
+        del K, K1, padding
+    require(gram_err <= VALUE_TOL * s2 and padding_err == 0.0, (engine, gram_err, padding_err))
+    with torch.no_grad():
+        start_err = abs(gp.lml(*ref['start'], x, y).item() - ref['start f32'])
+    start_bound = 10 * N_ * EPS['float32'] * (MESH_START[1] / MESH_START[2] + 1.0)
+    require(start_err <= start_bound, (engine, 'LML at the start', start_err, start_bound))
+    factor_ms = median_ms(torch, lambda: gp._ops.chol(gp._ops.gram(x, *at32)))
+    got = _value_and_grad(torch, gp, x, y, at32)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    valgrad_ms = median_ms(torch, lambda: _value_and_grad(torch, gp, x, y, at32))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    apart = _apart(got, ref['f64'])
+    multiples = [a / r for a, r in zip(apart, ref['apart'])]
+    t0 = time.perf_counter()
+    gp64 = DistributedGP(N_, mesh, dtype=np.float64, engine=engine)
+    x64, y64 = gp64.stage(ref['x'], ref['y'])
+    apart64 = _apart(_value_and_grad(torch, gp64, x64, y64, tuple(t.double() for t in at32)),
+                     ref['f64'])
+    float64_s = time.perf_counter() - t0
+    del gp64, x64, y64
+    shares = [a / r for a, r in zip(apart64, ref['apart'])]
+    print(f'{engine} at the optimum against float64 ExactLML (sizes: {_parts(ref["size"])}): '
+          f'float32 {_parts(apart)}, i.e. ' + ', '.join(f'{m:.3g}' for m in multiples)
+          + ' times ExactLML float32\'s (limits '
+          + ', '.join(f'{m:g}' for m in MESH_F32_MULTIPLES) + f'); float64 {_parts(apart64)}, i.e. ' + ', '.join(f'{m:.3g}' for m in shares)
+          + f' of ExactLML float32\'s (limit {MESH_F64_SHARE:g}; {float64_s:.2f} s)', flush=True)
+    require(all(m <= limit for m, limit in zip(multiples, MESH_F32_MULTIPLES)),
+            (engine, 'float32', apart, ref['apart']))
+    require(all(share <= MESH_F64_SHARE for share in shares), (engine, 'float64', apart64))
+    alpha, _ = gp.posterior_alpha(*hypers, x, y)
+    tables = {'alpha': from_stored(gp.plan, alpha.cpu().numpy())}
+    tables['mean'], tables['var'] = (t.cpu().numpy() for t in gp.predict(*hypers, x, y, Xs))
+    posterior_err = {key: _table_distance(key, tables[key], ref[key]) for key in tables}
+    require(max(posterior_err.values()) <= CARD_CPU_TOL, (engine, posterior_err))
+    t0 = time.perf_counter()
+    indices = _indices(gp, hypers, x, y, X)
+    gsa_s = time.perf_counter() - t0
+    readings, failures = [], []
+    for key, want in ref['indices'].items():
+        apart, spread = _table_distance(key, indices[key], want), ref['spread'][key]
+        require(bool(np.isfinite(indices[key]).all()), (engine, key))
+        ratio = apart / spread if spread else (math.inf if apart else 0.0)
+        readings.append(f'{key}{"^2" if key.endswith(" T") else ""} {apart:.2e} = {ratio:.3f} '
+                        f'spreads')
+        failures += [(key, apart, spread)] if ratio > ULP_SPREADS else []
+    require(not failures, (engine, failures))
+    torch.cuda.synchronize()
+    gram_kernels.LAUNCHES = 0
+    with launch_shapes(gram_kernels) as shapes:
+        t0 = time.perf_counter()
+        (ls_c, s2_c, noise_c), lml_c, iterations = gp.calibrate(
+            X, Y, np.full(X.shape[1], MESH_START[0]), *MESH_START[1:], maxiter=MESH_MAXITER)
+        torch.cuda.synchronize()
+        calibrate_s = time.perf_counter() - t0
+    launches = gram_kernels.LAUNCHES
+    require(launches > 0 and math.isfinite(float(lml_c)), (engine, launches, lml_c))
+    print(f'{engine} on an NCCL mesh of 1 rank (plan: Npad {gp.plan.Npad}, B {gp.plan.B}'
+          + (f', q {gp._ops.q}' if engine == 'cyclic2' else '') + f'): ring gram against the '
+          f'one-device gram max |diff| {gram_err:.3e} (tol {VALUE_TOL * s2:.3e}), padding exact; '
+          f'at the start, LML |diff| to ExactLML float32\'s {start_err:.3e} (phase 4 bound '
+          f'{start_bound:.3e}); at the optimum LML {got[0].item():.6f} (ExactLML float32 '
+          f'{ref["f32"][0].item():.6f}, float64 {ref["f64"][0].item():.6f}); float64 posterior against the one-device route '
+          f'(limit {CARD_CPU_TOL}): ' + ', '.join(f'{k} {v:.2e}' for k, v in posterior_err.items())
+          + f'; indices ({gsa_s:.2f} s; S and T squared, limit {ULP_SPREADS} one-ulp '
+          f'spreads): ' + ', '.join(readings), flush=True)
+    print(f'{engine}: value+grad {valgrad_ms:.2f} ms (median of {MESH_TIMED}; the one-device '
+          f'ExactLML {ref["ms"]:.2f} ms in this run), factor (gram + Cholesky) {factor_ms:.2f} '
+          f'ms, peak device memory {peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB held before '
+          f'it; calibrate of {MESH_MAXITER} iterations: '
+          f'{iterations} iterations, LML {float(lml_c):.6f}, {calibrate_s:.2f} s, {launches} '
+          f'unit-gram launches: ' + ', '.join(f'{n}x {u}x{v} {kind}'
+                                              for (u, v, kind), n in sorted(shapes.items())),
+          flush=True)
+    return {'valgrad_ms': valgrad_ms, 'factor_ms': factor_ms, 'peak_gib': peak,
+            'launches': launches, 'value': got[0].item(), 'calibrate_s': calibrate_s}
+
+
+def mesh_phase(torch, gram_kernels):
+    """Phase 13a: the multi-device variant route on an NCCL group of world
+    size 1 at the north star's problem, both engines, then
+    graft_entry.dryrun_multichip(1). Returns (unit-gram launches of the
+    engines' calibrates, the mesh tiles' times, the one-device reference)."""
+    import numpy as np
+    from romcomma_tpu_torch import graft_entry, north_star
+    from romcomma_tpu_torch.parallel.distributed import make_n_mesh
+    N_, M_ = NORTH_STAR[:2]
+    X, Y = north_star.problem(N_, M_)
+    Xs = np.random.default_rng(SEED).standard_normal((256, M_))
+    hypers = MAIN_PATH['north_star_hypers']
+    tiles = check_mesh_tiles(torch, gram_kernels)
+    t0 = time.perf_counter()
+    ref = mesh_reference(torch, X, Y, Xs, hypers)
+    print(f'one-device reference at N={N_}: ExactLML float32 value+grad {ref["ms"]:.2f} ms '
+          f'(median of {MESH_TIMED}), LML {ref["f32"][0].item():.6f} (float64 '
+          f'{ref["f64"][0].item():.6f}); at the optimum float32 against float64 '
+          f'{_parts(ref["apart"])}, float64 sizes {_parts(ref["size"])}; indices\' one-ulp '
+          f'spreads ' + ', '.join(
+              f'{k} {v:.2e}' for k, v in ref['spread'].items())
+          + f'; {time.perf_counter() - t0:.2f} s', flush=True)
+    launches = 0
+    with nccl_group(torch):
+        mesh = make_n_mesh()
+        require(mesh.size() == 1, mesh)
+        for engine in MESH_ENGINES:
+            launches += mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers,
+                                    ref)['launches']
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(1)
+        print(f'graft_entry.dryrun_multichip(1) in the group: {time.perf_counter() - t0:.2f} s',
+              flush=True)
+    return launches, tiles, ref
+
+
+def _mesh_rank(rank, size, hypers):
+    """Phase 13b on one of several ranks: each engine's float32 LML and
+    gradient at the north star's problem of ``size`` (N, M), at ``hypers``,
+    on this rank's device, and on a card its value+grad's median ms."""
+    import numpy as np
+    import torch
+    from romcomma_tpu_torch import north_star
+    from romcomma_tpu_torch.base.definitions import device
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP, make_n_mesh
+    X, Y = north_star.problem(*size)
+    at = tuple(torch.tensor(h, dtype=torch.float32, device=device()) for h in hypers)
+    out = {}
+    for engine in MESH_ENGINES:
+        gp = DistributedGP(len(X), make_n_mesh(), dtype=np.float32, engine=engine)
+        x, y = gp.stage(X, Y)
+        out[engine] = [t.cpu().numpy() for t in _value_and_grad(torch, gp, x, y, at)]
+        if x.is_cuda:
+            out[engine + ' ms'] = median_ms(torch, lambda: _value_and_grad(torch, gp, x, y, at))
+    return out
+
+
+def mesh_ranks(S, size, hypers, backend, timeout):
+    """_mesh_rank on S spawned ranks over ``backend``; requires every rank's
+    LML and gradient to be the same bits. Returns every rank's record."""
+    import numpy as np
+    from romcomma_tpu_torch.parallel import spawn
+    results = spawn.run(_mesh_rank, S, size, hypers, backend=backend, timeout=timeout)
+    for engine in MESH_ENGINES:
+        require(all(all(np.array_equal(a, b) for a, b in zip(r[engine], results[0][engine]))
+                    for r in results[1:]), (engine, S, 'ranks differ'))
+    return results
+
+
+def mesh_ranks_phase(torch, ref, hypers):
+    """Phase 13b: where the machine has several cards, both engines on S =
+    min(MESH_RANKS, cards) NCCL ranks, spawned, at phase 8a's optimum
+    ``hypers``: every rank's LML and gradient the same bits, held to float64
+    ExactLML's as in 13a."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f'phase 13b not run: this machine has {count} CUDA device(s), and NCCL takes one '
+              f'rank per card, so a mesh of several ranks needs two cards or more', flush=True)
+        return
+    S = min(MESH_RANKS, count)
+    results = mesh_ranks(S, NORTH_STAR[:2], hypers, 'nccl', 900)
+    for engine in MESH_ENGINES:
+        apart = _apart([torch.as_tensor(g, device=CARD) for g in results[0][engine]],
+                       ref['f64'])
+        multiples = [a / r for a, r in zip(apart, ref['apart'])]
+        require(all(m <= limit for m, limit in zip(multiples, MESH_F32_MULTIPLES)),
+                (engine, S, apart, ref['apart']))
+        print(f'{engine} on {S} NCCL ranks: every rank the same bits; against float64 ExactLML '
+              f'{_parts(apart)}, i.e. ' + ', '.join(f'{m:.3g}' for m in multiples) + ' times '
+              f'ExactLML float32\'s; value+grad ' + ', '.join(f'{r[engine + " ms"]:.2f}'
+                                                             for r in results) + ' ms by rank',
+              flush=True)
 
 
 def main() -> int:
@@ -2477,6 +2897,13 @@ def main() -> int:
     print(f'phase 12: {time.perf_counter() - t:.2f} s (benchmark_script {sweep_seconds:.2f} s)',
           flush=True)
 
+    t = phase(f'13. the multi-device variant route: DistributedGP engine=\'cyclic\' and '
+              f'\'cyclic2\' on an NCCL group of 1 rank, N={NORTH_STAR[0]} M={NORTH_STAR[1]}, '
+              f'float32; graft_entry.dryrun_multichip(1); several ranks where there are cards')
+    mesh_launches, mesh_tiles, mesh_ref = mesh_phase(torch, gram_kernels)
+    mesh_ranks_phase(torch, mesh_ref, MAIN_PATH['north_star_hypers'])
+    print(f'phase 13: {time.perf_counter() - t:.2f} s', flush=True)
+
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
     batch_ms, batch_plain_ms, batch_bound_ms, batch_bound_by = batch_times[(6, 4096, 4096, 30)]
     print(card)
@@ -2485,8 +2912,9 @@ def main() -> int:
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
         'launches': (launches + covariant_launches + north_star_launches + large_launches
-                     + sobol_launches + active_launches + csv_launches + sweep_launches),
-        'max_abs_err': max_err,
+                     + sobol_launches + active_launches + csv_launches + sweep_launches
+                     + mesh_launches),
+        'max_abs_err': max(max_err, *(tile[4] for tile in mesh_tiles.values())),
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}, {
         'name': 'unit_gram (batched launch)', 'route': 'cuda',

@@ -21,6 +21,14 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import pandas as pd
 
+from romcomma_tpu_torch.base.definitions import write_once
+
+
+def dump_json(path: Path | str, obj: Any, **kwargs: Any):
+    """Write obj to path as the tree's JSON is written: indented by 8."""
+    with open(path, mode='w') as file:
+        json.dump(obj, file, indent=8, **kwargs)
+
 
 class Frame:
     """A pandas DataFrame bound 1:1 to ``<csv>.csv`` on disk.
@@ -57,7 +65,7 @@ class Frame:
 
     def write(self, **kwargs: Any) -> 'Frame':
         self._write_options |= kwargs
-        self._df.to_csv(self._path, **self._write_options)
+        write_once(self._df.to_csv, self._path, **self._write_options)
         return self
 
     def broadcast_value(self, target_shape: Tuple[int, int], is_diagonal: bool = True) -> 'Frame':
@@ -131,19 +139,19 @@ class Data:
     @staticmethod
     def delete(folder: Path | str) -> Path:
         folder = Path(folder)
-        shutil.rmtree(folder, ignore_errors=True)
+        write_once(shutil.rmtree, folder, ignore_errors=True)
         return folder
 
     @staticmethod
     def empty(folder: Path | str) -> Path:
         folder = Data.delete(folder)
-        folder.mkdir(mode=0o777, parents=True, exist_ok=False)
+        write_once(folder.mkdir, mode=0o777, parents=True, exist_ok=False)
         return folder
 
     @staticmethod
     def copy(src_folder: Path | str, dst_folder: Path | str) -> Path:
         dst_folder = Data.delete(dst_folder)
-        shutil.copytree(src=src_folder, dst=dst_folder)
+        write_once(shutil.copytree, src=src_folder, dst=dst_folder)
         return dst_folder
 
 
@@ -182,8 +190,7 @@ class Model(ABC):
             return json.load(file)
 
     def write_meta(self, meta: Dict[str, Any]):
-        with open(self._meta_json, mode='w') as file:
-            json.dump(meta, file, indent=8, default=str)
+        write_once(dump_json, self._meta_json, meta, default=str)
 
     @abstractmethod
     def calibrate(self, **kwargs) -> Dict[str, Any]:

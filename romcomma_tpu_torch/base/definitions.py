@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 from contextlib import contextmanager
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -87,3 +87,53 @@ def pinned_device(pinned: Optional[torch.device]):
         yield
     finally:
         _PINNED = previous
+
+
+# --------------------------------------------------------------------------- #
+# Several ranks (torch.distributed): who writes the model tree
+# --------------------------------------------------------------------------- #
+
+_SOLO = False
+
+
+def in_process_group() -> bool:
+    """Whether this process works with others: a default process group is
+    initialized and the caller is not inside ``solo()``."""
+    import torch.distributed as dist
+    return not _SOLO and dist.is_available() and dist.is_initialized()
+
+
+def group_size() -> int:
+    """The number of ranks this process works with: the default process
+    group's size, or 1 where there is none or inside ``solo()``."""
+    import torch.distributed as dist
+    return dist.get_world_size() if in_process_group() else 1
+
+
+def write_once(write: Callable[..., Any], *args: Any, **kwargs: Any) -> None:
+    """Write to the model tree once for the process group: ``write(*args,
+    **kwargs)`` on rank 0 alone, then, under a group of several ranks, a
+    barrier, so no rank reads the tree before the write is on disk. Without
+    a process group (or inside ``solo()``) it is a plain call. Every rank of
+    a group runs the same folds, so each reaches the same write sites in the
+    same order."""
+    import torch.distributed as dist
+    if group_size() == 1:
+        write(*args, **kwargs)
+        return
+    if dist.get_rank() == 0:
+        write(*args, **kwargs)
+    dist.barrier()
+
+
+@contextmanager
+def solo():
+    """The body's work is this process's alone (``parallel.multihost``'s
+    share of the folds): ``parallel.distributed.make_n_mesh()`` gives its own
+    device, it writes what it trains, and it enters no collective."""
+    global _SOLO
+    previous, _SOLO = _SOLO, True
+    try:
+        yield
+    finally:
+        _SOLO = previous

@@ -18,12 +18,14 @@ from __future__ import annotations
 import argparse
 import os
 import tarfile
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from romcomma_tpu_torch import user
+from romcomma_tpu_torch.base.definitions import in_process_group, solo
 
 K: int = -2
 Ms: Tuple[int, ...] = (7, 9, 11, 13, 15, 17, 19)
@@ -46,12 +48,25 @@ IS_GSA_ERROR_CALCULATED: bool = True
 
 def process_identity() -> Tuple[int, int]:
     """(process_id, num_processes) of this process in a sweep shared by
-    several: from ROMCOMMA_PROCESS_ID / ROMCOMMA_NUM_PROCESSES, set per task
-    by the launcher (a SLURM array, parallel SSH), else (0, 1)."""
-    if 'ROMCOMMA_NUM_PROCESSES' in os.environ:
-        return (int(os.environ.get('ROMCOMMA_PROCESS_ID', '0')),
-                int(os.environ['ROMCOMMA_NUM_PROCESSES']))
-    return 0, 1
+    several: ``parallel.multihost.process_identity`` (ROMCOMMA_PROCESS_ID /
+    ROMCOMMA_NUM_PROCESSES set per task by the launcher, then the process
+    group's rank and size, else (0, 1))."""
+    from romcomma_tpu_torch.parallel import multihost
+    return multihost.process_identity()
+
+
+def _in_cell_order(table: Dict[str, tuple], gathered: bool) -> Dict[str, dict]:
+    """{folder: columns} of ``table`` ({folder: (cell, columns)}) in the
+    order of the cells. ``gathered``: of every rank's table, once each rank
+    has run its own cells."""
+    parts = [table]
+    if gathered:
+        import torch.distributed as dist
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, table)
+    rows = sorted(((cell, folder, columns) for part in parts
+                   for folder, (cell, columns) in part.items()), key=lambda row: row[0])
+    return {folder: columns for _, folder, columns in rows}
 
 
 def run(args: argparse.Namespace, root: str | Path) -> Path:
@@ -62,16 +77,19 @@ def run(args: argparse.Namespace, root: str | Path) -> Path:
     # --process-id/--num-processes, else process_identity(). Each process runs
     # its round-robin share of (noise, M, N, rotation) cells; results persist
     # to the shared tree and collect as usual. -K and -M come from args where
-    # given, else from the module's K and Ms.
+    # given, else from the module's K and Ms. Where the cells are shared out,
+    # each process runs and writes its own alone (solo()): under a process
+    # group its ranks hold different cells, so they share no collective until
+    # the root collections, which rank 0 writes from every rank's cells.
     pid, nproc = process_identity()
     pid = args.process_id if args.process_id is not None else pid
     nproc = args.num_processes if args.num_processes is not None else nproc
     k = args.folds or K
     ms = (args.input_dim,) if args.input_dim else Ms
     cell = -1
-    with user.contexts.Environment('Test'):
+    with user.contexts.Environment('Test'), solo() if nproc > 1 else nullcontext():
         KIND_NAMES = [kind.name.lower() for kind in GSA_KINDS]
-        gprs, gsas = {}, {}
+        gprs, gsas = {}, {}                 # folder: (cell, its columns at root)
         for noise_magnitude in NOISE_MAGNITUDES:
             for M in ms:
                 for N in Ns:
@@ -110,10 +128,11 @@ def run(args: argparse.Namespace, root: str | Path) -> Path:
                             user.results.Collect({'variance': {}, 'lengthscales': {}},
                                                  {f'{repo.folder / model}/kernel': {'model': model} for model in models},
                                                  args.ignore).from_folders((repo.folder / 'gpr') / 'kernel', True)
-                            gprs |= {f'{repo.folder}/gpr': {'M': M, 'noise magnitude': noise_magnitude,
-                                                            'IS_NOISE_COVARIANT': args.is_noise_covariant,
-                                                            'IS_NOISE_VARIANCE_DETERMINED': IS_NOISE_VARIANCE_DETERMINED,
-                                                            'ext': ext}}
+                            gprs |= {f'{repo.folder}/gpr': (cell, {
+                                'M': M, 'noise magnitude': noise_magnitude,
+                                'IS_NOISE_COVARIANT': args.is_noise_covariant,
+                                'IS_NOISE_VARIANCE_DETERMINED': IS_NOISE_VARIANCE_DETERMINED,
+                                'ext': ext})}
                             if args.gsa:
                                 user.run.gsa('gpr', repo, is_covariant=args.is_gpr_covariant,
                                              is_isotropic=False, kinds=GSA_KINDS,
@@ -124,10 +143,13 @@ def run(args: argparse.Namespace, root: str | Path) -> Path:
                                                  {f'{repo.folder / model}/gsa/{kind_name}': {'model': model, 'kind': kind_name}
                                                   for kind_name in KIND_NAMES for model in models},
                                                  True).from_folders((repo.folder / 'gsa'), True)
-                            gsas |= {f'{repo.folder}/gsa': {'M': M, 'noise magnitude': noise_magnitude,
-                                                            'IS_NOISE_COVARIANT': args.is_noise_covariant,
-                                                            'IS_NOISE_VARIANCE_DETERMINED': IS_NOISE_VARIANCE_DETERMINED,
-                                                            'ext': ext}}
+                            gsas |= {f'{repo.folder}/gsa': (cell, {
+                                'M': M, 'noise magnitude': noise_magnitude,
+                                'IS_NOISE_COVARIANT': args.is_noise_covariant,
+                                'IS_NOISE_VARIANCE_DETERMINED': IS_NOISE_VARIANCE_DETERMINED,
+                                'ext': ext})}
+    gathered = nproc > 1 and in_process_group()
+    gprs, gsas = _in_cell_order(gprs, gathered), _in_cell_order(gsas, gathered)
     user.results.Collect({'test_summary': {'header': [0, 1]}}, gprs, True).from_folders(root / 'gpr', True)
     user.results.Collect({'variance': {}, 'log_marginal': {}}, gprs, True).from_folders((root / 'gpr') / 'likelihood', True)
     user.results.Collect({'variance': {}, 'lengthscales': {}}, gprs, True).from_folders((root / 'gpr') / 'kernel', True)

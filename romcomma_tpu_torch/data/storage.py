@@ -32,6 +32,9 @@ import numpy as np
 import pandas as pd
 import scipy.stats
 
+from romcomma_tpu_torch.base.classes import dump_json
+from romcomma_tpu_torch.base.definitions import write_once
+
 
 class Frame:
     """A pd.DataFrame backed by a csv file with the dataset header layout
@@ -60,7 +63,7 @@ class Frame:
 
     def write(self):
         assert not self.is_empty, 'refusing to write an empty Frame (no csv/df attached).'
-        self.df.to_csv(path_or_buf=self._csv, sep=Frame.CSV_OPTIONS['sep'], index=True)
+        write_once(self.df.to_csv, path_or_buf=self._csv, sep=Frame.CSV_OPTIONS['sep'], index=True)
 
     def __repr__(self) -> str:
         return str(self._csv)
@@ -91,8 +94,8 @@ class Repository:
             if init_mode is Repository.InitMode.READ:
                 self._data = Frame(self._csv)
         else:
-            shutil.rmtree(self._folder, ignore_errors=True)
-            self._folder.mkdir(mode=0o777, parents=True, exist_ok=False)
+            write_once(shutil.rmtree, self._folder, ignore_errors=True)
+            write_once(self._folder.mkdir, mode=0o777, parents=True, exist_ok=False)
 
     # -- basic accessors ---------------------------------------------------- #
 
@@ -137,8 +140,7 @@ class Repository:
             return json.load(file)
 
     def write_meta(self):
-        with open(self._meta_json, mode='w') as file:
-            json.dump(self._meta, file, indent=8)
+        write_once(dump_json, self._meta_json, self._meta)
 
     def _update_meta(self):
         self._meta.update({'data': {'X_heading': self._data.df.columns.values[0][0],
@@ -185,7 +187,7 @@ class Repository:
         if not (1 <= abs(K) <= N):
             raise IndexError(f'fold count K={K:d} must satisfy 1 <= K <= N={N:d}.')
         for k in range(max(abs(K), self.K) + 1):
-            shutil.rmtree(self.fold_folder(k), ignore_errors=True)
+            write_once(shutil.rmtree, self.fold_folder(k), ignore_errors=True)
         rows = list(range(N))
         if shuffle_before_folding:
             random.shuffle(rows)
@@ -333,7 +335,7 @@ class Fold(Repository):
         self._X_rotate(self._data, value)
         self._X_rotate(self._test_data, value)
         old_value = self.X_rotation
-        pd.DataFrame(np.matmul(old_value, value)).to_csv(self._X_rotation)
+        write_once(pd.DataFrame(np.matmul(old_value, value)).to_csv, self._X_rotation)
 
     @classmethod
     def from_dfs(cls, parent: Repository, k: int, data: pd.DataFrame,

@@ -382,8 +382,15 @@ def _intervals_pass(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[int, int], .
         G, g, acc = torch.stack([c.G for c in cals]), torch.stack([c.g0KY for c in cals]), (zero,) * 3
         step = torch.func.vmap(lambda *args: _intervals_step(need, *args))
     t0 = time.perf_counter()
-    for start in range(0, N, chunk):
-        acc = step(pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk])
+    mesh = getattr(cal, 'gsa_mesh', None)
+    if mesh is not None:
+        # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
+        from romcomma_tpu_torch.gsa.mesh import intervals_sweep
+        acc = intervals_sweep(mesh, range(0, N, chunk), lambda acc, start: step(
+            pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk]), acc)
+    else:
+        for start in range(0, N, chunk):
+            acc = step(pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk])
     _synchronize(acc[0])
     timings = {'chunks': -(-N // chunk), 'loop_s': time.perf_counter() - t0}
     Vs = []

@@ -339,14 +339,21 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
             return torch.func.vmap(lambda C_: run(C_, q))(C)
 
     t0 = time.perf_counter()
-    quads, psi_parts = None, {k: [] for k in kinds}
-    for start in range(0, N, chunk):
-        out = step(C, slice(start, start + chunk))
-        quads = ({k: out[k][0] for k in kinds} if quads is None else
-                 {k: tuple(q0 + q1 for q0, q1 in zip(quads[k], out[k][0])) for k in kinds})
-        for k in kinds:
-            psi_parts[k].append(out[k][1])
-    psi = {k: torch.cat(psi_parts[k], dim=-1) for k in kinds}
+    mesh = getattr(cal, 'gsa_mesh', None)
+    if mesh is not None:
+        # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
+        from romcomma_tpu_torch.gsa.mesh import error_sweep
+        quads, psi = error_sweep(mesh, N, chunk, lambda q: step(C, q), kinds)
+    else:
+        quads, psi_parts = None, {k: [] for k in kinds}
+        for start in range(0, N, chunk):
+            out = step(C, slice(start, start + chunk))
+            quads = ({k: out[k][0] for k in kinds} if quads is None else
+                     {k: tuple(q0 + q1 for q0, q1 in zip(quads[k], out[k][0]))
+                      for k in kinds})
+            for k in kinds:
+                psi_parts[k].append(out[k][1])
+        psi = {k: torch.cat(psi_parts[k], dim=-1) for k in kinds}
     _synchronize(Cs[0]['g'])
     timings.update(chunks=-(-N // chunk), loop_s=time.perf_counter() - t0)
 
@@ -360,7 +367,8 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
                        'quads': {k: tuple(q * (invd[k][r] if layout[r]['out'] == 'jk'
                                                else invd[k][r][..., 0])
                                           for r, q in enumerate(quads_i[k])) for k in kinds},
-                       'psi': {k: _psi_solve(c.K_cho, psi_i[k] * invd_psi[k][..., None])
+                       'psi': {k: _psi_solve(c.meta.get('psi_half_solver', c.K_cho),
+                                             psi_i[k] * invd_psi[k][..., None])
                                for k in kinds}})
     _synchronize(Cs[0]['g'])
     timings['solve_s'] = time.perf_counter() - t0
@@ -369,9 +377,14 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
     return sweeps
 
 
-def _psi_solve(K_cho: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+def _psi_solve(K_cho, factor: torch.Tensor) -> torch.Tensor:
     """tri_solve(K_cho, factor (M, l, i, N)) with K_cho's batch axis aligned
-    with ``i`` (reference _psi_contract), as ONE multi-RHS solve per K_cho[i]."""
+    with ``i`` (reference _psi_contract), as ONE multi-RHS solve per K_cho[i].
+    A callable K_cho is a half solver of its own (a mesh's, whose factor is
+    spread over its ranks): the psi factors only meet again in quadforms
+    over their last axis."""
+    if callable(K_cho):
+        return K_cho(factor)
     Mm, l, i, N = factor.shape
     if K_cho.ndim == 2:
         sol = tri_solve(K_cho, factor.reshape(Mm * l * i, N).T)   # (N, R)

@@ -12,6 +12,7 @@ import pandas as pd
 import torch
 
 from romcomma_tpu_torch.base.classes import Data, Model
+from romcomma_tpu_torch.base.definitions import write_once
 from romcomma_tpu_torch.gsa.calibrators import ClosedSobolWithError, marginalize_all
 from romcomma_tpu_torch.models.gpr import GPR
 
@@ -89,7 +90,7 @@ class GSA(Model):
                 df = pd.DataFrame(result.reshape(-1, shape[-1]),
                                   columns=GSA._columns(M, shape[-1], m_list),
                                   index=GSA._index(shape))
-                df.to_csv(self._folder / f'{key}.csv', float_format='%.6f')
+                write_once(df.to_csv, self._folder / f'{key}.csv', float_format='%.6f')
 
     def calibrate(self, method: str = None, precomputed=None, **kwargs) -> Dict[str, Any]:
         """Marginalize every m-slice, concat along a new last axis,

@@ -400,7 +400,17 @@ def calibrate_covariant(raw: CovariantParams, mask: Dict[str, float], x: torch.T
                         ftol: float = lbfgs.SCIPY_FTOL) -> Tuple[CovariantParams, float, int, str]:
     """One L-BFGS-B maximization of the covariant LML over _covariant_objective.
     x/y are cast to the params' working dtype. Returns (raw_opt, lml,
-    iterations, stop), stop being scipy's reason for stopping."""
+    iterations, stop), stop being scipy's reason for stopping.
+
+    Under a process group of several ranks, romcomma_tpu takes its covariant
+    mesh from L*N = COVARIANT_MESH_MIN_LN with the lengthscales frozen; that
+    mesh is not ported, so such a descent raises NotImplementedError by name."""
+    from romcomma_tpu_torch.base.definitions import group_size
+    from romcomma_tpu_torch.parallel.distributed import COVARIANT_MESH_LATER, COVARIANT_MESH_MIN_LN
+    if (group_size() > 1 and not mask['raw_lengthscales']
+            and x.shape[0] * y.shape[1] >= COVARIANT_MESH_MIN_LN):
+        raise NotImplementedError(f'covariant descent at L*N = {x.shape[0] * y.shape[1]} on '
+                                  f'{group_size()} ranks: {COVARIANT_MESH_LATER}.')
     wd = raw['raw_kernel_chol_diag'].dtype
     objective, merge = _covariant_objective(raw, mask, x.to(wd), y.to(wd))
     res = lbfgs.minimize(objective, {name: value.detach() for name, value in raw.items()},

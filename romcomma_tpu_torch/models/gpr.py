@@ -542,7 +542,10 @@ class MOGP(GPR):
     def _calibrate_variant_large(self, maxiter: int, gtol: float, block: int = 256,
                                  mask: Optional[Dict[str, float]] = None):
         """The large-N route (romcomma_tpu gpr.py:551-624): per-output or
-        joint descents through parallel.distributed.DistributedGP, from the
+        joint descents through parallel.distributed.DistributedGP on
+        ``make_n_mesh()`` with ``dense_kernels=True``, as romcomma_tpu builds
+        it (under a process group of several ranks, the 'cyclic2' engine over
+        them, every rank in lockstep; else one device), from the
         kernel's variance, its lengthscales broadcast to (L, M) and the
         likelihood's variance. The joint descent runs when L > 1 and
         ``fits_multi(L)``. A descent that ends on a non-finite LML in the
@@ -551,10 +554,11 @@ class MOGP(GPR):
         ``mask`` (a variant_mask dict) freezes hyperparameter groups as the
         small route does. Returns (constrained parameters, lml (L,),
         iterations per output)."""
-        from romcomma_tpu_torch.parallel.distributed import DistributedGP
+        from romcomma_tpu_torch.parallel.distributed import DistributedGP, make_n_mesh
         mask3 = ((mask['raw_lengthscales'], mask['raw_variance'], mask['raw_noise'])
                  if mask is not None else (1.0, 1.0, 1.0))
-        dgp = DistributedGP(self._N, block=block)
+        mesh = make_n_mesh()
+        dgp = DistributedGP(self._N, mesh, block=block, dense_kernels=True)
         variance = np.asarray(self._kernel.data.variance.np[0], dtype=FLOAT())
         lengthscales = np.broadcast_to(np.asarray(self._kernel.data.lengthscales.np, dtype=FLOAT()),
                                        (self._L, self._M))
@@ -575,7 +579,8 @@ class MOGP(GPR):
                 # N the working dtype's rounding can swamp the small pivots
                 # whatever the start. Rerun the whole descent in float64.
                 if dgp64 is None:
-                    dgp64 = DistributedGP(self._N, block=block, dtype=np.float64)
+                    dgp64 = DistributedGP(self._N, mesh, block=block, dtype=np.float64,
+                                          dense_kernels=True)
                 result = dgp64.calibrate(
                     self._X.astype(np.float64), self._Y[:, l:l + 1].astype(np.float64), *start,
                     maxiter=maxiter, gtol=gtol, mask=mask3, max_linesearch_steps=4)

@@ -12,14 +12,19 @@ card's name and power limit. It trains in float32, so every gram goes
 through the unit-gram kernel.
 
     python -m romcomma_tpu_torch.north_star [N] [M] [maxiter]
+    torchrun --nproc-per-node=S -m romcomma_tpu_torch.north_star [N] [M] [maxiter]
 
 ``maxiter`` defaults to 5000, the reference's cap, so the descent stops on
-scipy's own rule. The command needs a CUDA device.
+scipy's own rule. The command needs a CUDA device. Under torchrun with S > 1
+ranks, one card each, the engine is the block-cyclic 'cyclic' one over their
+mesh (``benchmarks/north_star.py`` takes it on a mesh of several devices),
+and rank 0 prints the record.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,11 +58,12 @@ def problem(N: int, M: int) -> Tuple[np.ndarray, np.ndarray]:
     return X, Y
 
 
-def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda'
+def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda', mesh=None
         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """(the JSON record, the trained state: dgp, X, Y, x_dev, y_dev, ls, s2,
     noise). ``on`` is 'cuda' (the card, required there) or 'cpu', where the
-    record's device numbers read None."""
+    record's device numbers read None. ``mesh``: a ``make_n_mesh()`` mesh to
+    train over (its default engine), else the device ``on``."""
     on = torch.device(on)
     if on.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('the north star is measured on a CUDA device, and there is none')
@@ -66,7 +72,7 @@ def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda'
     X, Y = problem(N, M)
 
     t0 = time.perf_counter()
-    dgp = DistributedGP(N, mesh=on, dtype=np.float32)
+    dgp = DistributedGP(N, mesh=on if mesh is None else mesh, dtype=np.float32)
     x_dev, y_dev = dgp.stage(X, Y)
     _synchronize(on)
     t_stage = time.perf_counter() - t0
@@ -103,6 +109,7 @@ def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda'
            'end_to_end_s': t_stage + t_train + t_gsa,
            'S1_first3': [round(S['first_order'][m], 4) for m in range(min(3, M))],
            'ST_first3': [round(S['total'][m], 4) for m in range(min(3, M))],
+           'engine': dgp.engine or 'one device', 'ranks': 1 if mesh is None else mesh.size(),
            'peak_gib': (torch.cuda.max_memory_allocated(on) / 2 ** 30 if on.type == 'cuda'
                         else None),
            'device': torch.cuda.get_device_name(on) if on.type == 'cuda' else 'cpu',
@@ -113,9 +120,22 @@ def run(N: int = 20000, M: int = 30, maxiter: int = 5000, on: str = 'cuda'
 
 
 def main(N: int = 20000, M: int = 30, maxiter: int = 5000) -> Dict[str, Any]:
-    """Run the north star on the card and print its record as one JSON line."""
-    out, _ = run(N, M, maxiter)
-    print(json.dumps(out), flush=True)
+    """Run the north star on the card and print its record as one JSON line;
+    under torchrun, over the ranks' mesh, rank 0 printing."""
+    if 'WORLD_SIZE' not in os.environ:
+        out, _ = run(N, M, maxiter)
+        print(json.dumps(out), flush=True)
+        return out
+    import torch.distributed as dist
+    from romcomma_tpu_torch.parallel import multihost
+    from romcomma_tpu_torch.parallel.distributed import make_n_mesh
+    multihost.init()
+    try:
+        out, _ = run(N, M, maxiter, mesh=make_n_mesh())
+        if dist.get_rank() == 0:
+            print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
     return out
 
 

@@ -1,7 +1,9 @@
-"""The large-N variant route: ``distributed.DistributedGP`` on one device.
+"""The large-N variant route and its meshes of ranks.
 
-Counterpart of ``romcomma_tpu/parallel/``. Only the one-device
-``DistributedGP`` is ported; the multi-device engines (the ring gram, the
-block-cyclic and deferred factorizations, the covariant and GSA meshes) are
-not, and ``DistributedGP`` refuses a mesh of more than one device by name.
+Counterpart of ``romcomma_tpu/parallel/``: ``distributed.DistributedGP`` on
+one device or over an ('n',) mesh of torch.distributed ranks with the
+'cyclic' and 'cyclic2' (``cyclic_deferred``) engines; ``mesh`` for the
+('l', 'n') training step and the ('k',) fold mesh; ``multihost`` for folds
+shared out over processes; ``spawn`` to run one function on a fresh group of
+ranks. The covariant mesh (``covariant_mesh.py``) is not ported yet.
 """

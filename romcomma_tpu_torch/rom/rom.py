@@ -20,13 +20,14 @@ invariant and the Sobol' indices of the rotated model stay well defined.
 
 from __future__ import annotations
 
-import json
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from romcomma_tpu_torch.base.classes import dump_json
+from romcomma_tpu_torch.base.definitions import write_once
 from romcomma_tpu_torch.data.storage import Fold, Repository
 from romcomma_tpu_torch.gsa.calibrators import ClosedSobol, ClosedSobolWithRotation
 from romcomma_tpu_torch.gsa.models import GSA, Sobol
@@ -261,12 +262,11 @@ class ROM:
                                  is_T_partial=bool(meta.get('is_T_partial', True))).calibrate)
         meta['history'] = self.history
         meta['S_m'] = score
-        with open(self.folder / 'meta.json', 'w') as f:
-            json.dump(meta, f, indent=8, default=str)
+        write_once(dump_json, self.folder / 'meta.json', meta, default=str)
         # rotation.csv holds the rotation the inputs went through, R_k ... R_1.
         # Fold.X_rotation composes old @ new, as romcomma_tpu's storage does,
         # which differs once two rotations of the run do not commute.
-        np.savetxt(self.folder / 'rotation.csv', applied, delimiter=',')
+        write_once(np.savetxt, self.folder / 'rotation.csv', applied, delimiter=',')
         return meta
 
     def reduce(self, Mu: int) -> Path:
@@ -275,7 +275,7 @@ class ROM:
         df = self.fold.data.df
         reduced = df.iloc[:, :Mu].join(df.iloc[:, self.fold.M:])
         out = self.folder / f'reduced.{Mu}.csv'
-        reduced.to_csv(out)
+        write_once(reduced.to_csv, out)
         return out
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pandas as pd
 
 from romcomma_tpu_torch.base.classes import Data
+from romcomma_tpu_torch.base.definitions import write_once
 from romcomma_tpu_torch.data.storage import Repository, Fold
 
 
@@ -44,7 +45,7 @@ class Collect:
     def from_folders(self, dst: Union[Path, str], is_existing_deleted=False, **kwargs: Any) -> 'Collect':
         dst = Path(dst)
         if is_existing_deleted:
-            rmtree(dst, ignore_errors=True)
+            write_once(rmtree, dst, ignore_errors=True)
         dst.mkdir(mode=0o777, parents=True, exist_ok=True)
         for csv, read_options in self.csvs.items():
             results = None
@@ -58,7 +59,7 @@ class Collect:
                                else pd.concat([results, result.copy(deep=True)],
                                               axis=0, ignore_index=True))
             if not (results is None and self.ignore_missing):
-                results.to_csv(dst / f'{csv}.csv', **(self.write_options | kwargs))
+                write_once(results.to_csv, dst / f'{csv}.csv', **(self.write_options | kwargs))
         return self
 
     def from_folds(self, dst: Repository, is_existing_deleted=False, **kwargs: Any) -> 'Collect':

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from romcomma_tpu_torch.base.classes import Data
+from romcomma_tpu_torch.base.definitions import write_once
 from romcomma_tpu_torch.data.storage import Repository, Fold
 from romcomma_tpu_torch.gsa.calibrators import (COVARIANT_ERRORS_UNSUPPORTED,
                                                 marginalize_all_kinds, marginalize_all_kinds_folds)
@@ -325,8 +326,8 @@ def gsa(name: str, repo: Repository, is_covariant: Optional[bool], is_isotropic:
         results.Collect({'S': {}, 'V': {}} | ({'T': {}, 'W': {}} if is_error_calculated else {}),
                         {str(n): {} for n in names}, ignore_exceptions).from_folds(repo, True)
         for n in names:
-            shutil.copyfile(repo.fold_folder(repo.folds.start) / 'meta.json',
-                            repo.folder / n / 'meta.json')
+            write_once(shutil.copyfile, repo.fold_folder(repo.folds.start) / 'meta.json',
+                       repo.folder / n / 'meta.json')
         return names
     names = []
     for covariant, isotropic in _model_passes(is_covariant, is_isotropic):

@@ -19,6 +19,7 @@ import numpy as np
 import pandas as pd
 import scipy.stats
 
+from romcomma_tpu_torch.base.definitions import write_once
 from romcomma_tpu_torch.data.storage import Frame, Repository, Fold
 from romcomma_tpu_torch.user import functions
 
@@ -168,7 +169,8 @@ class Function:
                 noise=GaussianNoise(N, self._noise_variance())(repo=None),
                 origin_meta={'DOE': doe.__name__, 'function_vector': function_vector.meta,
                              'noise': self._noise_variance.meta})
-            pd.DataFrame(self._noise_variance()).to_csv(folder / 'likelihood.variance.csv')
+            write_once(pd.DataFrame(self._noise_variance()).to_csv,
+                       folder / 'likelihood.variance.csv')
 
     @property
     def repo(self) -> Repository:

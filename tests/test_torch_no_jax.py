@@ -6,7 +6,9 @@ the CPU it asks for, without importing jax or romcomma_tpu; then run.gpr and
 run.gsa on the fold-batched path (fold_parallel=True: the lockstep descents,
 the stacked GSA) on a repository of two equal folds; then the likelihood
 layer, regression.gls and the CSV CLI's run (imported with the sweep CLI),
-with the CPU pinned, as a Python caller pins it, around csv_script.run."""
+with the CPU pinned, as a Python caller pins it, around csv_script.run; and
+the multi-device modules (parallel.mesh, multihost, cyclic_deferred, spawn,
+gsa.mesh, graft_entry) import."""
 
 import subprocess
 import sys
@@ -53,6 +55,10 @@ from romcomma_tpu_torch.base.definitions import pinned_device
 with pinned_device(torch.device('cpu')):
     csv_script.run({str(tmp_path / 'csv')!r}, {str(tmp_path / 'data.csv')!r}, gpr=True, gsa=True,
                    ignore_exceptions=False, k=2)
+from romcomma_tpu_torch import graft_entry
+from romcomma_tpu_torch.gsa import mesh as gsa_mesh
+from romcomma_tpu_torch.parallel import cyclic_deferred, mesh, multihost, spawn
+assert multihost.process_identity() == (0, 1)
 assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
 assert 'romcomma_tpu_torch.rom.rom' in sys.modules
 print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'romcomma_tpu')))
