@@ -111,9 +111,9 @@ Phases (each prints its result and its time; none catches its own failure):
      noise 0.1 and N=8000 (ALL, L=9, K=-2: two 4000-row folds, 18 descents
      in lockstep), its Latin hypercube drawn from SEED; the same readings and
      checks.
- 13. the multi-device variant route (parallel.distributed's mesh engines,
-     parallel.cyclic_deferred, gsa.mesh) at the north star's problem (N=20000,
-     M=30, float32, phase 8a's optimum):
+ 13. the multi-device routes: the variant mesh engines (parallel.distributed,
+     parallel.cyclic_deferred, gsa.mesh) at the north star's problem
+     (N=20000, M=30, float32, phase 8a's optimum), and the covariant mesh:
      a. the kernel at the mesh tiles' shapes ((20224^2, 30), the ring's one
         tile; (3584^2, 30) two operands, 'cyclic2''s pair tiles) against its
         plain version, timed, with their bounds; the one-device reference
@@ -133,16 +133,33 @@ Phases (each prints its result and its time; none catches its own failure):
         (median of 5) beside the one-device route's, the value+grad's peak
         memory above what was held before it; a calibrate of 5 iterations
         from the north star's start, its unit-gram launches counted by shape;
-        then graft_entry.dryrun_multichip(1);
-     b. where the machine has two cards or more, both engines on min(4,
-        cards) spawned NCCL ranks, held as in 13a and rank to rank bit for
-        bit; else a line saying why it did not run.
+        then, after 13c in the same group, graft_entry.dryrun_multichip(1),
+        its covariant step included;
+     b. where the machine has two cards or more, both engines and the
+        covariant mesh on min(4, cards) spawned NCCL ranks, held as in 13a
+        and 13c and rank to rank bit for bit; else a line saying why it did
+        not run;
+     c. in 13a's group, the covariant mesh (parallel.covariant_mesh:
+        DistributedCovariantGP on 'cyclic2') at phase 7's improper fold
+        (N=8192, M=30, L=3: L*N = 24576 = Npad at B=256), at its trained
+        gpr.c.a with F's off-diagonals set (COVARIANT_MESH_CORRELATION) and
+        the lengthscales frozen, float32: its ring gram against the
+        one-device covariant gram (VALUE_TOL, and whether bit for bit); its
+        float32 LML, dF and dnoise within COVARIANT_MESH_F32_MULTIPLES of
+        CovariantUpperLML float32's own distance from float64
+        CovariantUpperLML, and its float64 ones within MESH_F64_SHARE of it;
+        value+grad and factor ms (median of 5) beside CovariantUpperLML's,
+        the value+grad's peak memory above what was held; a calibrate of 5
+        iterations from that point, F's off-diagonals trained, its unit-gram
+        launches counted by shape. The kernel at its shapes ((24576^2, 30)
+        u is v, the (3584^2, 30) pair tile) is checked and timed in phases 3
+        and 13a.
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
 of phase 4 and of phase 7, the north star and run.gpr of phase 8, the two
-ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines'
-calibrates of phase 13, each counted from 0 just
+ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines' and
+the covariant mesh's calibrates of phase 13, each counted from 0 just
 before it runs, and, as a path of the same kernel, its batched launches among
 them (phases 4, 8b, 11 and 12). Exits non-zero, printing no result, where
 there is no CUDA device or no checkout around the script.
@@ -2712,11 +2729,186 @@ def mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers, ref):
             'launches': launches, 'value': got[0].item(), 'calibrate_s': calibrate_s}
 
 
-def mesh_phase(torch, gram_kernels):
+#: Phase 13c's fold of phase 4's repository: the improper fold (N=8192, L=3,
+#: so L*N = 24576 = Npad at B=256), at phase 7's trained gpr.c.a.
+COVARIANT_MESH_FOLD = 2
+#: Phase 7 trains F diagonal (its off-diagonals frozen, the reference's
+#: default); phase 13c sets each off-diagonal of F to this correlation, so
+#: that every entry of dF carries weight.
+COVARIANT_MESH_CORRELATION = 0.5
+#: The parts of a covariant LML evaluation that phase 13c holds apart.
+COVARIANT_MESH_PARTS = ('LML', 'dF', 'dnoise')
+#: The covariant mesh's float32 LML evaluation against float64
+#: CovariantUpperLML, part by part: within these multiples of
+#: CovariantUpperLML float32's own distance from float64 there. Set from the
+#: H100's readings (PERF.md): the mesh read 1.16, 128 and 3.71 times it;
+#: its float32 dF is the least accurate, as the variant engines' ds2 is (a
+#: sum of Bbar o unit over K^-1 formed blockwise from the in-place inverse,
+#: where CovariantUpperLML takes cholesky_inverse's).
+COVARIANT_MESH_F32_MULTIPLES = (4.0, 400.0, 12.0)
+
+
+def _covariant_value_and_grads(torch, lml, F, noise_cov):
+    """[LML, dF, dnoise] of lml(F, noise_cov), float64."""
+    p = [t.detach().clone().requires_grad_(True) for t in (F, noise_cov)]
+    value = lml(*p)
+    return [value.detach().double()] + [g.double() for g in torch.autograd.grad(value, p)]
+
+
+def _covariant_parts(values) -> str:
+    """values, one for each of COVARIANT_MESH_PARTS, named."""
+    return ', '.join(f'{part} {v:.3e}' for part, v in zip(COVARIANT_MESH_PARTS, values))
+
+
+def covariant_mesh_point(torch, repo):
+    """Phase 13c's problem: the improper fold's X and Y (float32, on the
+    card), phase 7's trained lengthscales and noise covariance, and its F
+    with off-diagonals F_ij = COVARIANT_MESH_CORRELATION sqrt(F_ii F_jj)."""
+    import numpy as np
+    from romcomma_tpu_torch.data.storage import Fold
+    fold = Fold(repo, COVARIANT_MESH_FOLD)
+    _, F, ls, noise = trained_covariant(torch, fold.folder / 'gpr.c.a', CARD, torch.float32)
+    d = np.sqrt(np.diag(F))
+    F = COVARIANT_MESH_CORRELATION * np.outer(d, d) + (1.0 - COVARIANT_MESH_CORRELATION) * np.diag(
+        d * d)
+    return (*fold_tensors(torch, fold, torch.float32), ls, F, noise)
+
+
+def covariant_mesh_reference(torch, X, Y, ls, F, noise):
+    """Phase 13c's one-device reference: CovariantUpperLML's float32 LML, dF
+    and dnoise and the median ms of its value+grad, the float64 ones on the
+    same float32-rounded inputs, the float32 one's distance from them part
+    by part, and the float64 parts' sizes."""
+    from romcomma_tpu_torch.models import gp
+    at32 = [torch.tensor(a, dtype=torch.float32, device=CARD) for a in (F, noise)]
+    ls32 = torch.tensor(ls, dtype=torch.float32, device=CARD)
+    upper = gp.covariant_upper_lml(X, ls32, Y)
+    ref = {'at32': at32, 'ls32': ls32, 'f32': _covariant_value_and_grads(torch, upper, *at32),
+           'ms': median_ms(torch, lambda: _covariant_value_and_grads(torch, upper, *at32))}
+    del upper
+    upper = gp.covariant_upper_lml(X.double(), ls32.double(), Y.double())
+    ref['f64'] = _covariant_value_and_grads(torch, upper, *(t.double() for t in at32))
+    del upper
+    ref['apart'] = _apart(ref['f32'], ref['f64'])
+    ref['size'] = [float(w.abs().max()) for w in ref['f64']]
+    require(all(a > 0.0 for a in ref['apart']),
+            ('CovariantUpperLML float32 equals float64', ref['apart']))
+    return ref
+
+
+def covariant_mesh_engine(torch, gram_kernels, mesh, X, Y, ls, F, noise, ref):
+    """Phase 13c on the mesh: DistributedCovariantGP's ring gram against the
+    one-device covariant gram; its float32 and float64 LML, dF and dnoise
+    against float64 CovariantUpperLML's; its factor and value+grad timed
+    beside CovariantUpperLML's; then its calibrate of MESH_MAXITER
+    iterations from the point, counted. Returns its record."""
+    import numpy as np
+    from romcomma_tpu_torch.models import gp, params
+    from romcomma_tpu_torch.ops.gram import rbf_gram_covariant_unit
+    from romcomma_tpu_torch.ops.linalg import cholesky
+    from romcomma_tpu_torch.parallel.covariant_mesh import DistributedCovariantGP
+    N_, L_ = Y.shape
+    LN = N_ * L_
+    at32, ls32 = ref['at32'], ref['ls32']
+    dgp = DistributedCovariantGP(N_, L_, mesh, dtype=np.float32)
+    st = dgp.stage(X, Y, ls32)
+    with torch.no_grad():               # one rank: stored and global order are the original
+        K = dgp._gram(st, *at32)
+        unit4 = rbf_gram_covariant_unit(X, ls32)
+        K1 = gp._assemble(unit4, *at32)
+        gram_err = (K[:LN, :LN] - K1).abs().max().item()
+        bitwise = bool(torch.equal(K[:LN, :LN], K1))
+        padding = K[LN:].clone()
+        padding[:, LN:] -= torch.eye(K.shape[1] - LN, device=CARD)
+        padding_err = padding.abs().max().item() if padding.numel() else 0.0
+        padding_err += K[:LN, LN:].abs().max().item() if K.shape[1] > LN else 0.0
+        del K, K1, padding
+        upper_factor_ms = median_ms(torch, lambda: cholesky(gp._assemble(unit4, *at32)))
+        del unit4
+    gram_tol = VALUE_TOL * float(np.abs(F).max())
+    require(gram_err <= gram_tol and padding_err == 0.0, ('covariant gram', gram_err, padding_err))
+    factor_ms = median_ms(torch, lambda: dgp.engine.chol(dgp._gram(st, *at32)))
+    lml = dgp.lml_fn(st)
+    got = _covariant_value_and_grads(torch, lml, *at32)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    valgrad_ms = median_ms(torch, lambda: _covariant_value_and_grads(torch, lml, *at32))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    apart = _apart(got, ref['f64'])
+    multiples = [a / r for a, r in zip(apart, ref['apart'])]
+    t0 = time.perf_counter()
+    dgp64 = DistributedCovariantGP(N_, L_, mesh, dtype=np.float64)
+    st64 = dgp64.stage(X.double(), Y.double(), ls32.double())
+    apart64 = _apart(_covariant_value_and_grads(torch, dgp64.lml_fn(st64),
+                                                *(t.double() for t in at32)), ref['f64'])
+    float64_s = time.perf_counter() - t0
+    del dgp64, st64
+    shares = [a / r for a, r in zip(apart64, ref['apart'])]
+    print(f'covariant mesh (plan: Npad {dgp.plan.Npad}, B {dgp.plan.B}, q {dgp.engine.q}) at '
+          f'L*N={LN}: ring gram against the one-device covariant gram max |diff| {gram_err:.3e} '
+          f'(tol {gram_tol:.3e}), {"bit for bit" if bitwise else "not bit for bit"}, padding '
+          f'exact; against float64 CovariantUpperLML (sizes: {_covariant_parts(ref["size"])}): '
+          f'CovariantUpperLML float32 {_covariant_parts(ref["apart"])}; the mesh float32 '
+          f'{_covariant_parts(apart)}, i.e. ' + ', '.join(f'{m:.3g}' for m in multiples)
+          + ' times CovariantUpperLML float32\'s (limits '
+          + ', '.join(f'{m:g}' for m in COVARIANT_MESH_F32_MULTIPLES) + f'); float64 '
+          f'{_covariant_parts(apart64)}, i.e. ' + ', '.join(f'{m:.3g}' for m in shares)
+          + f' of it (limit {MESH_F64_SHARE:g}; {float64_s:.2f} s); LML float32 '
+          f'{got[0].item():.6f}, CovariantUpperLML float32 {ref["f32"][0].item():.6f}, float64 '
+          f'{ref["f64"][0].item():.6f}', flush=True)
+    require(all(m <= limit for m, limit in zip(multiples, COVARIANT_MESH_F32_MULTIPLES)),
+            ('covariant mesh', 'float32', apart, ref['apart']))
+    require(all(share <= MESH_F64_SHARE for share in shares),
+            ('covariant mesh', 'float64', apart64))
+    raw = params.covariant_init(F, ls, noise, on=CARD)
+    torch.cuda.synchronize()
+    gram_kernels.LAUNCHES = 0
+    with launch_shapes(gram_kernels) as shapes:
+        t0 = time.perf_counter()
+        _, lml_c, iterations, stop = dgp.calibrate(
+            X, Y, raw, params.covariant_mask(kernel_covariance=True), maxiter=MESH_MAXITER)
+        torch.cuda.synchronize()
+        calibrate_s = time.perf_counter() - t0
+    launches = gram_kernels.LAUNCHES
+    require(launches > 0 and math.isfinite(float(lml_c)), ('covariant mesh', launches, lml_c))
+    print(f'covariant mesh: value+grad {valgrad_ms:.2f} ms (median of {MESH_TIMED}; '
+          f'CovariantUpperLML {ref["ms"]:.2f} ms in this run), factor (gram + Cholesky) '
+          f'{factor_ms:.2f} ms (CovariantUpperLML\'s assembly + Cholesky {upper_factor_ms:.2f} '
+          f'ms), peak device memory {peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB held '
+          f'before it; calibrate of {MESH_MAXITER} iterations: {iterations} iterations, LML '
+          f'{float(lml_c):.6f}, {calibrate_s:.2f} s, scipy: {stop}; {launches} unit-gram '
+          f'launches: ' + ', '.join(f'{n}x {u}x{v} {kind}'
+                                    for (u, v, kind), n in sorted(shapes.items())), flush=True)
+    return {'valgrad_ms': valgrad_ms, 'factor_ms': factor_ms, 'peak_gib': peak,
+            'launches': launches, 'calibrate_s': calibrate_s}
+
+
+def covariant_mesh_phase(torch, gram_kernels, mesh, repo):
+    """Phase 13c: the covariant mesh on ``mesh`` at phase 7's improper fold.
+    Returns (its calibrate's unit-gram launches, its point as host arrays,
+    the one-device reference)."""
+    t0 = time.perf_counter()
+    X, Y, ls, F, noise = covariant_mesh_point(torch, repo)
+    ref = covariant_mesh_reference(torch, X, Y, ls, F, noise)
+    print(f'one-device covariant reference at L*N={X.shape[0] * Y.shape[1]}: CovariantUpperLML '
+          f'float32 value+grad {ref["ms"]:.2f} ms (median of {MESH_TIMED}), LML '
+          f'{ref["f32"][0].item():.6f} (float64 {ref["f64"][0].item():.6f}); F off-diagonal '
+          f'correlation {COVARIANT_MESH_CORRELATION}; {time.perf_counter() - t0:.2f} s',
+          flush=True)
+    launches = covariant_mesh_engine(torch, gram_kernels, mesh, X, Y, ls, F, noise,
+                                     ref)['launches']
+    point = tuple(t.cpu().numpy() for t in (X, Y)) + (ls, F, noise)
+    return launches, point, ref
+
+
+def mesh_phase(torch, gram_kernels, repo):
     """Phase 13a: the multi-device variant route on an NCCL group of world
-    size 1 at the north star's problem, both engines, then
-    graft_entry.dryrun_multichip(1). Returns (unit-gram launches of the
-    engines' calibrates, the mesh tiles' times, the one-device reference)."""
+    size 1 at the north star's problem, both engines; then 13c, the
+    covariant mesh, in the same group; then graft_entry.dryrun_multichip(1).
+    Returns (unit-gram launches of the engines' and the covariant mesh's
+    calibrates, the mesh tiles' times, the one-device reference, 13c's
+    point and its reference)."""
     import numpy as np
     from romcomma_tpu_torch import graft_entry, north_star
     from romcomma_tpu_torch.parallel.distributed import make_n_mesh
@@ -2741,21 +2933,27 @@ def mesh_phase(torch, gram_kernels):
         for engine in MESH_ENGINES:
             launches += mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers,
                                     ref)['launches']
+        del X, Y, Xs
+        covariant_launches, point, covariant_ref = covariant_mesh_phase(torch, gram_kernels,
+                                                                        mesh, repo)
         t0 = time.perf_counter()
         graft_entry.dryrun_multichip(1)
         print(f'graft_entry.dryrun_multichip(1) in the group: {time.perf_counter() - t0:.2f} s',
               flush=True)
-    return launches, tiles, ref
+    return launches + covariant_launches, tiles, ref, point, covariant_ref
 
 
-def _mesh_rank(rank, size, hypers):
+def _mesh_rank(rank, size, hypers, point):
     """Phase 13b on one of several ranks: each engine's float32 LML and
     gradient at the north star's problem of ``size`` (N, M), at ``hypers``,
-    on this rank's device, and on a card its value+grad's median ms."""
+    and the covariant mesh's float32 LML, dF and dnoise at ``point`` (X, Y,
+    lengthscales, F, noise covariance: 13c's), on this rank's device, and on
+    a card each value+grad's median ms."""
     import numpy as np
     import torch
     from romcomma_tpu_torch import north_star
     from romcomma_tpu_torch.base.definitions import device
+    from romcomma_tpu_torch.parallel.covariant_mesh import DistributedCovariantGP
     from romcomma_tpu_torch.parallel.distributed import DistributedGP, make_n_mesh
     X, Y = north_star.problem(*size)
     at = tuple(torch.tensor(h, dtype=torch.float32, device=device()) for h in hypers)
@@ -2766,33 +2964,41 @@ def _mesh_rank(rank, size, hypers):
         out[engine] = [t.cpu().numpy() for t in _value_and_grad(torch, gp, x, y, at)]
         if x.is_cuda:
             out[engine + ' ms'] = median_ms(torch, lambda: _value_and_grad(torch, gp, x, y, at))
+    Xc, Yc, ls, F, noise = point
+    dgp = DistributedCovariantGP(*Yc.shape, make_n_mesh(), dtype=np.float32)
+    lml = dgp.lml_fn(dgp.stage(Xc, Yc, ls))
+    at = [torch.tensor(a, dtype=torch.float32, device=device()) for a in (F, noise)]
+    out['covariant'] = [t.cpu().numpy() for t in _covariant_value_and_grads(torch, lml, *at)]
+    if at[0].is_cuda:
+        out['covariant ms'] = median_ms(torch, lambda: _covariant_value_and_grads(torch, lml, *at))
     return out
 
 
-def mesh_ranks(S, size, hypers, backend, timeout):
+def mesh_ranks(S, size, hypers, point, backend, timeout):
     """_mesh_rank on S spawned ranks over ``backend``; requires every rank's
-    LML and gradient to be the same bits. Returns every rank's record."""
+    LMLs and gradients to be the same bits. Returns every rank's record."""
     import numpy as np
     from romcomma_tpu_torch.parallel import spawn
-    results = spawn.run(_mesh_rank, S, size, hypers, backend=backend, timeout=timeout)
-    for engine in MESH_ENGINES:
+    results = spawn.run(_mesh_rank, S, size, hypers, point, backend=backend, timeout=timeout)
+    for engine in MESH_ENGINES + ('covariant',):
         require(all(all(np.array_equal(a, b) for a, b in zip(r[engine], results[0][engine]))
                     for r in results[1:]), (engine, S, 'ranks differ'))
     return results
 
 
-def mesh_ranks_phase(torch, ref, hypers):
-    """Phase 13b: where the machine has several cards, both engines on S =
-    min(MESH_RANKS, cards) NCCL ranks, spawned, at phase 8a's optimum
-    ``hypers``: every rank's LML and gradient the same bits, held to float64
-    ExactLML's as in 13a."""
+def mesh_ranks_phase(torch, ref, hypers, point, covariant_ref):
+    """Phase 13b: where the machine has several cards, both engines and the
+    covariant mesh on S = min(MESH_RANKS, cards) NCCL ranks, spawned, at
+    phase 8a's optimum ``hypers`` and 13c's ``point``: every rank's LMLs and
+    gradients the same bits, held to float64 ExactLML's and
+    CovariantUpperLML's as in 13a and 13c."""
     count = torch.cuda.device_count()
     if count < 2:
         print(f'phase 13b not run: this machine has {count} CUDA device(s), and NCCL takes one '
               f'rank per card, so a mesh of several ranks needs two cards or more', flush=True)
         return
     S = min(MESH_RANKS, count)
-    results = mesh_ranks(S, NORTH_STAR[:2], hypers, 'nccl', 900)
+    results = mesh_ranks(S, NORTH_STAR[:2], hypers, point, 'nccl', 900)
     for engine in MESH_ENGINES:
         apart = _apart([torch.as_tensor(g, device=CARD) for g in results[0][engine]],
                        ref['f64'])
@@ -2804,6 +3010,16 @@ def mesh_ranks_phase(torch, ref, hypers):
               f'ExactLML float32\'s; value+grad ' + ', '.join(f'{r[engine + " ms"]:.2f}'
                                                              for r in results) + ' ms by rank',
               flush=True)
+    apart = _apart([torch.as_tensor(g, device=CARD) for g in results[0]['covariant']],
+                   covariant_ref['f64'])
+    multiples = [a / r for a, r in zip(apart, covariant_ref['apart'])]
+    require(all(m <= limit for m, limit in zip(multiples, COVARIANT_MESH_F32_MULTIPLES)),
+            ('covariant mesh', S, apart, covariant_ref['apart']))
+    print(f'covariant mesh on {S} NCCL ranks: every rank the same bits; against float64 '
+          f'CovariantUpperLML {_covariant_parts(apart)}, i.e. '
+          + ', '.join(f'{m:.3g}' for m in multiples) + ' times CovariantUpperLML float32\'s; '
+          'value+grad ' + ', '.join(f'{r["covariant ms"]:.2f}' for r in results) + ' ms by rank',
+          flush=True)
 
 
 def main() -> int:
@@ -2897,11 +3113,13 @@ def main() -> int:
     print(f'phase 12: {time.perf_counter() - t:.2f} s (benchmark_script {sweep_seconds:.2f} s)',
           flush=True)
 
-    t = phase(f'13. the multi-device variant route: DistributedGP engine=\'cyclic\' and '
+    t = phase(f'13. the multi-device routes: DistributedGP engine=\'cyclic\' and '
               f'\'cyclic2\' on an NCCL group of 1 rank, N={NORTH_STAR[0]} M={NORTH_STAR[1]}, '
-              f'float32; graft_entry.dryrun_multichip(1); several ranks where there are cards')
-    mesh_launches, mesh_tiles, mesh_ref = mesh_phase(torch, gram_kernels)
-    mesh_ranks_phase(torch, mesh_ref, MAIN_PATH['north_star_hypers'])
+              f'float32; the covariant mesh at L*N={3 * N}; graft_entry.dryrun_multichip(1); '
+              f'several ranks where there are cards')
+    mesh_launches, mesh_tiles, mesh_ref, point, covariant_ref = mesh_phase(torch, gram_kernels,
+                                                                           repo)
+    mesh_ranks_phase(torch, mesh_ref, MAIN_PATH['north_star_hypers'], point, covariant_ref)
     print(f'phase 13: {time.perf_counter() - t:.2f} s', flush=True)
 
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]

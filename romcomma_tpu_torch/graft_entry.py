@@ -5,15 +5,12 @@ Counterpart of ``__graft_entry__.py``.
 ``entry()``            -> (fn, example_args): the forward step of the flagship
                           model (variant multi-output ARD-RBF GP: per-output
                           LML and the posterior at the first training inputs).
-``dryrun_multichip(n)`` -> run both mesh paths once over n ranks, tiny shapes:
+``dryrun_multichip(n)`` -> run the mesh paths once over n ranks, tiny shapes:
                           in the caller's process group of n ranks, or in n
                           spawned ranks (gloo on the CPU; NCCL where n cards
                           are visible).
 
     python -m romcomma_tpu_torch.graft_entry [n]
-
-romcomma_tpu's dry run also takes its covariant mesh (``covariant_mesh.py``),
-which is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,10 +45,12 @@ def entry():
 
 
 def _dryrun(rank: int, n_devices: int) -> float:
-    """Both mesh paths on this rank: the ('l', 'n') training step in the
+    """The mesh paths on this rank: the ('l', 'n') training step in the
     working dtype, then the ('n',) engines' LML and gradient (float64, so the
-    two engines agree to 1e-6 whatever the working dtype) and the GSA with
-    errors over the mesh. Returns the LML of the 'cyclic' engine."""
+    two engines agree to 1e-6 whatever the working dtype), the GSA with
+    errors over the mesh, and one value and (F, noise_cov) gradient of the
+    covariant chain (``DistributedCovariantGP``). Returns the LML of the
+    'cyclic' engine."""
     import torch
     from romcomma_tpu_torch.parallel import distributed as dist
     from romcomma_tpu_torch.parallel import mesh as pmesh
@@ -89,11 +88,24 @@ def _dryrun(rank: int, n_devices: int) -> float:
                     'the mesh GSA produced a non-finite T'
     assert abs(values['cyclic2'] - values['cyclic']) <= 1e-6 * max(1.0, abs(values['cyclic'])), \
         f'the deferred engine LML disagrees with the block-cyclic engine: {values}'
+
+    from romcomma_tpu_torch.parallel.covariant_mesh import DistributedCovariantGP
+    Lc = 2
+    Yc = np.concatenate([Y, 0.5 * Y + 0.05 * rng.normal(size=Y.shape)], axis=1)
+    dgc = DistributedCovariantGP(N2, Lc, n_mesh, block=8, dtype=np.float64)
+    st = dgc.stage(X, Yc, np.full((Lc, M2), 1.2))
+    F, noise_cov = (torch.tensor(a, dtype=torch.float64, device=st.u.device, requires_grad=True)
+                    for a in (np.eye(Lc) + 0.1, 0.05 * np.eye(Lc)))
+    value = dgc.lml_fn(st)(F, noise_cov)
+    dF, dnoise = torch.autograd.grad(value, (F, noise_cov))
+    assert bool(torch.isfinite(value)), 'the covariant mesh produced a non-finite LML'
+    assert bool(torch.isfinite(dF).all()) and bool(torch.isfinite(dnoise).all()), \
+        'the covariant mesh produced a non-finite gradient'
     return values['cyclic']
 
 
 def dryrun_multichip(n_devices: int) -> None:
-    """Both mesh paths once over n ranks, with tiny shapes: in the caller's
+    """The mesh paths once over n ranks, with tiny shapes: in the caller's
     process group (which must have n ranks), or in n spawned ranks."""
     import torch
     from romcomma_tpu_torch.base.definitions import group_size, in_process_group

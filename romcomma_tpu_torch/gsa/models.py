@@ -13,7 +13,7 @@ import torch
 
 from romcomma_tpu_torch.base.classes import Data, Model
 from romcomma_tpu_torch.base.definitions import write_once
-from romcomma_tpu_torch.gsa.calibrators import ClosedSobolWithError, marginalize_all
+from romcomma_tpu_torch.gsa.calibrators import ClosedSobol, ClosedSobolWithError, marginalize_all
 from romcomma_tpu_torch.models.gpr import GPR
 
 
@@ -74,6 +74,11 @@ class GSA(Model):
             return [(0, mm + 1) for mm in ms]
         return [(mm + 1, M) for mm in ms]
 
+    @property
+    @abstractmethod
+    def calibrator(self) -> ClosedSobol:
+        raise NotImplementedError
+
     @abstractmethod
     def _post_calibrate(self, extras: Dict[str, torch.Tensor],
                         results: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -120,6 +125,14 @@ class Sobol(GSA):
                   'V': np.atleast_2d(None), 'W': np.atleast_2d(None)}
 
     META: Dict[str, Any] = ClosedSobolWithError.META
+
+    @property
+    def calibrator(self) -> ClosedSobol:
+        """A fresh calibrator of this GSA's model and meta, with standard
+        errors where they are calculated (romcomma_tpu gsa/models.py:134-137);
+        ``calibrate`` runs its own pass."""
+        return (ClosedSobolWithError(self.gp, **self.meta) if self.is_error_calculated
+                else ClosedSobol(self.gp, **self.meta))
 
     def _post_calibrate(self, extras: Dict[str, torch.Tensor],
                         results: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

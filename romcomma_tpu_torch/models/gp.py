@@ -397,22 +397,28 @@ def _covariant_objective(raw: CovariantParams, mask: Dict[str, float], x: torch.
 
 def calibrate_covariant(raw: CovariantParams, mask: Dict[str, float], x: torch.Tensor,
                         y: torch.Tensor, maxiter: int = 5000, gtol: float = 1e-16,
-                        ftol: float = lbfgs.SCIPY_FTOL) -> Tuple[CovariantParams, float, int, str]:
+                        ftol: float = lbfgs.SCIPY_FTOL, large: bool = False
+                        ) -> Tuple[CovariantParams, float, int, str]:
     """One L-BFGS-B maximization of the covariant LML over _covariant_objective.
     x/y are cast to the params' working dtype. Returns (raw_opt, lml,
     iterations, stop), stop being scipy's reason for stopping.
 
-    Under a process group of several ranks, romcomma_tpu takes its covariant
-    mesh from L*N = COVARIANT_MESH_MIN_LN with the lengthscales frozen; that
-    mesh is not ported, so such a descent raises NotImplementedError by name."""
+    ``large`` is romcomma_tpu's choice of its host-paced calibrator
+    (``MOGP``: L*N >= meta['large_n_threshold']). Where it holds with the
+    lengthscales frozen, under a process group of several ranks, from L*N =
+    ``covariant_mesh.COVARIANT_MESH_MIN_LN``, the descent runs over the
+    ranks' mesh (``DistributedCovariantGP``, every rank in lockstep), as
+    romcomma_tpu's ``calibrate_covariant_host`` takes its covariant mesh.
+    Otherwise it runs on this rank's device, on any number of ranks."""
     from romcomma_tpu_torch.base.definitions import group_size
-    from romcomma_tpu_torch.parallel.distributed import COVARIANT_MESH_LATER, COVARIANT_MESH_MIN_LN
-    if (group_size() > 1 and not mask['raw_lengthscales']
-            and x.shape[0] * y.shape[1] >= COVARIANT_MESH_MIN_LN):
-        raise NotImplementedError(f'covariant descent at L*N = {x.shape[0] * y.shape[1]} on '
-                                  f'{group_size()} ranks: {COVARIANT_MESH_LATER}.')
     wd = raw['raw_kernel_chol_diag'].dtype
-    objective, merge = _covariant_objective(raw, mask, x.to(wd), y.to(wd))
+    x, y = x.to(wd), y.to(wd)
+    if large and not mask['raw_lengthscales'] and group_size() > 1:
+        from romcomma_tpu_torch.parallel import covariant_mesh
+        if x.shape[0] * y.shape[1] >= covariant_mesh.COVARIANT_MESH_MIN_LN:
+            mesh_gp = covariant_mesh.DistributedCovariantGP(x.shape[0], y.shape[1], dtype=wd)
+            return mesh_gp.calibrate(x, y, raw, mask, maxiter, gtol, ftol)
+    objective, merge = _covariant_objective(raw, mask, x, y)
     res = lbfgs.minimize(objective, {name: value.detach() for name, value in raw.items()},
                          maxiter=maxiter, gtol=gtol, ftol=ftol)
     return merge(res.params), -res.value, res.iterations, res.message

@@ -9,7 +9,10 @@ variant MOGP, one for the covariant MOGP.
 
 At ``MOGP.LARGE_N_THRESHOLD`` rows and more, the variant MOGP trains through
 the large-N route, ``parallel.distributed.DistributedGP``, as romcomma_tpu's
-does; the covariant MOGP takes one descent at every L*N.
+does. The covariant MOGP takes one descent on this device or, under a
+process group of several ranks at L*N >= the threshold with the
+lengthscales frozen, over their mesh (``parallel.covariant_mesh``), as
+romcomma_tpu's does.
 """
 
 from __future__ import annotations
@@ -485,11 +488,14 @@ class MOGP(GPR):
         return meta
 
     def _calibrate_covariant(self, meta, kernel_options, likelihood_options) -> Dict[str, Any]:
-        """One covariant descent (romcomma_tpu gpr.py:496-520) at every L*N:
-        romcomma_tpu's L*N threshold between its fused on-device descent and
-        its host-paced one guards a TPU compiler limit, and both of the
-        port's descents are the same eager scipy loop. The persisted
-        log-marginal is evaluated afresh from the written CSV parameters (see
+        """One covariant descent (romcomma_tpu gpr.py:496-520). romcomma_tpu's
+        L*N threshold between its fused on-device descent and its host-paced
+        one guards a TPU compiler limit, and on one rank both of the port's
+        descents are the same eager scipy loop; the threshold is passed on as
+        ``large``, since on several ranks a large descent with the
+        lengthscales frozen takes the covariant mesh
+        (``gp.calibrate_covariant``). The persisted log-marginal is evaluated
+        afresh from the written CSV parameters (see
         _finish_variant_calibration); meta's result also records scipy's
         reason for stopping."""
         mask = covariant_mask(kernel_variance=kernel_options['variance'],
@@ -498,9 +504,10 @@ class MOGP(GPR):
                               noise_variance=likelihood_options['variance'],
                               noise_covariance=likelihood_options['covariance'])
         X, Y = self._tensor(self._X), self._tensor(self._Y)
+        large = self._L * self._N >= int(meta.get('large_n_threshold', self.LARGE_N_THRESHOLD))
         raw_opt, _, iterations, stop = gp.calibrate_covariant(
             self._covariant_raw(), mask, X, Y, maxiter=int(meta.get('maxiter', 5000)),
-            gtol=float(meta.get('gtol', 1e-16)))
+            gtol=float(meta.get('gtol', 1e-16)), large=large)
         with torch.no_grad():
             c = {name: value.cpu().numpy() for name, value in covariant_constrain(raw_opt).items()}
         self._kernel.data.replace(variance=c['F'], lengthscales=c['lengthscales'])

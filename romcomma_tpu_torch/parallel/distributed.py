@@ -86,12 +86,6 @@ MULTI_DEVICE_MESH = ('the multi-device engines run SPMD, one torch.distributed r
                      'pass make_n_mesh(), its (\'n\',) DeviceMesh')
 TPU_TIERS = ('select reduced-precision or host-routed tiers of romcomma_tpu on the TPU; '
              'romcomma_tpu_torch computes the GSA in float64 on its device and has none')
-#: L*N from which romcomma_tpu's covariant descent takes its mesh on several
-#: devices (``parallel/covariant_mesh.py:68``); not ported yet.
-COVARIANT_MESH_MIN_LN: int = 4096
-COVARIANT_MESH_LATER = ('the covariant mesh (romcomma_tpu/parallel/covariant_mesh.py and the '
-                        'multi-device branch of calibrate_covariant_host) is not ported to '
-                        'romcomma_tpu_torch; run the covariant pass on one rank')
 
 #: Every slice of each GSA kind, for M input dims (romcomma_tpu's families).
 FAMILIES: Dict[str, Callable[[int], list]] = {

@@ -322,3 +322,47 @@ def test_pinned_sobol(tmp_path):
     sobol.calibrate()                     # the model's own pass, written to S.csv
     written = pd.read_csv(sobol.folder / 'S.csv', index_col=[0, 1]).to_numpy()
     np.testing.assert_allclose(written[:, :3].reshape(SOBOL_S.shape), SOBOL_S, atol=5e-7)
+
+
+@pytest.mark.parametrize('is_error_calculated', [False, True])
+def test_sobol_calibrator_is_romcomma_tpus(tmp_path, is_error_calculated):
+    """Sobol.calibrator on test_pinned_sobol's model: a fresh calibrator of
+    romcomma_tpu's class for its flag (ClosedSobolWithError with errors,
+    else ClosedSobol), whose marginalize_intervals over the kind's slices
+    gives what Sobol.calibrate computes and writes."""
+    from romcomma_tpu.data.storage import Fold as JaxFold, Repository as JaxRepository
+    from romcomma_tpu.gsa.models import GSA as JaxGSA, Sobol as JaxSobol
+    from romcomma_tpu.models.gpr import MOGP as JaxMOGP
+    from romcomma_tpu_torch.data.storage import Fold, Repository
+    from romcomma_tpu_torch.gsa.models import GSA, Sobol
+    from romcomma_tpu_torch.models.gpr import MOGP
+
+    data = np.linspace(1, 50, 50).reshape(5, 10).T
+    cols = pd.MultiIndex.from_tuples([('X', f'x{i}') for i in range(3)]
+                                     + [('Y', f'y{i}') for i in range(2)])
+
+    def sobol_of(repository, fold, mogp, gsa, sobol, root):
+        repo = repository.from_df(root, pd.DataFrame(data, columns=cols))
+        repo.into_K_folds(1)
+        model = mogp('fix.v.a', fold(repo, 0), False, False, False,
+                     kernel_parameters={'variance': 0.5 * np.ones((1, 2)),
+                                        'lengthscales': np.array([[0.01] * 3, [0.03] * 3])},
+                     likelihood_variance=1e-4 * np.ones((1, 2)))
+        return sobol(model, gsa.Kind.FIRST_ORDER, -1, is_error_calculated)
+
+    theirs = sobol_of(JaxRepository, JaxFold, JaxMOGP, JaxGSA, JaxSobol, tmp_path / 'jax')
+    mine = sobol_of(Repository, Fold, MOGP, GSA, Sobol, tmp_path / 'port')
+    calibrator = mine.calibrator
+    assert type(calibrator).__name__ == type(theirs.calibrator).__name__
+    assert type(calibrator) is (calibrators.ClosedSobolWithError if is_error_calculated
+                                else calibrators.ClosedSobol)
+    slices = tuple(mine._m_dataset)
+    got = calibrator.marginalize_intervals(slices)
+    want, _ = calibrators.marginalize_all(mine.gp, slices, is_error_calculated, **mine.meta)
+    for key in ('S', 'V') + (('T',) if is_error_calculated else ()):
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-12, atol=1e-15)
+    mine.calibrate()
+    for key in ('S', 'T') if is_error_calculated else ('S',):
+        written = pd.read_csv(mine.folder / f'{key}.csv', index_col=[0, 1]).to_numpy()
+        np.testing.assert_allclose(written[:, :3].reshape(got[key].shape), got[key].numpy(),
+                                   atol=5e-7)

@@ -367,3 +367,47 @@ def test_distributed_gp_float32_lml_through_the_kernel(cuda):
     for got, want in zip(grads32, grads64):
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())
 
+
+
+def test_covariant_mesh_float32_value_and_grad_at_one_rank(cuda):
+    """DistributedCovariantGP over an NCCL group of this process alone (world
+    size 1) at L N = 3 x 2048, M = 30, F and the noise covariance
+    non-diagonal: one float32 value and (F, noise_cov) gradient, whose ring
+    tile and three pair tiles launch the kernel, against CovariantUpperLML:
+    each part within chip_smoke.py's COVARIANT_MESH_F32_MULTIPLES of
+    CovariantUpperLML float32's own distance from float64, as phase 13c
+    holds it."""
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from romcomma_tpu_torch.models import gp
+    from romcomma_tpu_torch.parallel.covariant_mesh import DistributedCovariantGP
+    from romcomma_tpu_torch.parallel.distributed import make_n_mesh
+    rng = np.random.default_rng(5)
+    X = rng.uniform(0, 1, (2048, 30))
+    Y = np.column_stack([np.sin(3 * X[:, 0]) + X[:, 1], X[:, 2] ** 2, X[:, 0] * X[:, 3]])
+    Y = Y + 0.05 * rng.standard_normal(Y.shape)
+    ls = np.full((3, 30), 3.0)
+    F = np.array([[1.0, 0.5, 0.2], [0.5, 0.9, 0.3], [0.2, 0.3, 0.8]])
+    noise = np.array([[0.01, 0.002, 0.0], [0.002, 0.012, 0.001], [0.0, 0.001, 0.011]])
+    readings = {}
+    for dtype in (torch.float32, torch.float64):
+        x, y, ls_t, F_t, noise_t = (torch.as_tensor(a, dtype=dtype, device=cuda)
+                                    for a in (X, Y, ls, F, noise))
+        readings[dtype] = chip_smoke._covariant_value_and_grads(
+            torch, gp.covariant_upper_lml(x, ls_t, y), F_t, noise_t)
+    x, y, ls_t, F_t, noise_t = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                                for a in (X, Y, ls, F, noise))
+    with chip_smoke.nccl_group(torch):
+        dgp = DistributedCovariantGP(2048, 3, make_n_mesh(), dtype=np.float32)
+        lml = dgp.lml_fn(dgp.stage(x, y, ls_t))
+        before = gram_kernels.LAUNCHES
+        got = chip_smoke._covariant_value_and_grads(torch, lml, F_t, noise_t)
+        assert gram_kernels.LAUNCHES == before + 4
+    reference = chip_smoke._apart(readings[torch.float32], readings[torch.float64])
+    apart = chip_smoke._apart(got, readings[torch.float64])
+    assert all(np.isfinite(a) and a <= m * r for a, m, r in zip(
+        apart, chip_smoke.COVARIANT_MESH_F32_MULTIPLES, reference)), (apart, reference)

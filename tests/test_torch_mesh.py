@@ -6,8 +6,10 @@ mesh's GSA sweeps), the deferred engine with several super panels and a
 partial tail (parallel/cyclic_deferred.py) and the error calibrator's mesh
 sweeps (gsa/mesh.py), each held to romcomma_tpu's on make_n_mesh(S) of the
 conftest's 8 virtual devices from the same seeded inputs; every rank's
-results are bitwise equal, a short calibrate included."""
+results are bitwise equal, a short calibrate included. The spawns also run
+tests/test_torch_covariant_mesh.py's rank bodies (``mesh_suite_runs``)."""
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -41,23 +43,39 @@ LML_RTOL, GRAD = 1e-12, dict(rtol=1e-8, atol=1e-10)
 S_ATOL = V_ATOL = 1e-10
 
 
-@pytest.fixture(scope='module')
-def runs():
+def mesh_suite_runs(tmp_path_factory):
     """(the port's results per S, [rank 0's, rank 1's, ...] of
     ranks.mesh_suite on S gloo ranks, one spawn each; romcomma_tpu's per S:
-    its engines, its deferred engine at PANEL_BLOCKS[S], its mesh sweeps).
-    The spawns run while romcomma_tpu's are computed."""
-    arrays = _arrays()
-    with ThreadPoolExecutor(len(SIZES)) as pool:
-        spawns = {S: pool.submit(spawn.run, ranks.mesh_suite, S, PANEL_BLOCKS[S], arrays, SLICES,
-                                 timeout=300) for S in SIZES}
-        theirs = {S: {} for S in SIZES}
-        for (S, engine), result in _reference().items():
-            theirs[S][engine] = result
-        for S in SIZES:       # after _reference: its host-paced sweep programs are reused
-            theirs[S].update(deferred=_deferred_reference(S, PANEL_BLOCKS[S]),
-                             sweeps=_sweeps_reference(S, arrays))
-        return {S: done.result() for S, done in spawns.items()}, theirs
+    its engines, its deferred engine at PANEL_BLOCKS[S], its mesh sweeps;
+    romcomma_tpu's for tests/test_torch_covariant_mesh.py), computed once
+    for the whole test run, by whichever of the two files asks first
+    (ranks.run_once). romcomma_tpu's are computed while the spawns run."""
+    base = tmp_path_factory.getbasetemp()
+    folder = (base.parent if os.environ.get('PYTEST_XDIST_WORKER') else base) / 'mesh_suite'
+
+    def compute():
+        from test_torch_covariant_mesh import covariant_references
+        arrays = _arrays()
+        with ThreadPoolExecutor(len(SIZES) + 1) as pool:
+            spawns = {S: pool.submit(spawn.run, ranks.mesh_suite, S, PANEL_BLOCKS[S], arrays,
+                                     SLICES, timeout=300) for S in SIZES}
+            covariant = pool.submit(covariant_references)
+            theirs = {S: {} for S in SIZES}
+            for (S, engine), result in _reference().items():
+                theirs[S][engine] = result
+            for S in SIZES:   # after _reference: its host-paced sweep programs are reused
+                theirs[S].update(deferred=_deferred_reference(S, PANEL_BLOCKS[S]),
+                                 sweeps=_sweeps_reference(S, arrays))
+            return ({S: done.result() for S, done in spawns.items()}, theirs,
+                    covariant.result())
+
+    return ranks.run_once(folder, 'mesh_suite', compute)
+
+
+@pytest.fixture(scope='module')
+def runs(tmp_path_factory):
+    """(the port's results per S, romcomma_tpu's per S): mesh_suite_runs'."""
+    return mesh_suite_runs(tmp_path_factory)[:2]
 
 
 @pytest.fixture(scope='module')

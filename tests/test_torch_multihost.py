@@ -7,9 +7,11 @@ mesh (large_n_threshold lowered), write the one-rank tree (rank 0 writing);
 fold-sharded calibration equal ``gp.lml_variant`` and the fold loop;
 ``north_star.run`` over two ranks takes the 'cyclic' engine;
 ``benchmark_script`` shares its sweep cells out over two ranks and writes
-every cell; ``graft_entry.dryrun_multichip(2)`` runs; the covariant mesh
-and ``engine='upper'`` are refused by name on several ranks; a rank that
-fails stops every rank; and ``chip_smoke.py``'s phase 13b runs its rank
+every cell; ``graft_entry.dryrun_multichip(2)`` runs (its covariant step
+included); run.gpr's covariant pass routes as romcomma_tpu's (the
+one-device descent below the large-N threshold, writing the one-rank tree;
+the covariant mesh at it) and ``engine='upper'`` is refused by name on
+several ranks; a rank that fails stops every rank; and ``chip_smoke.py``'s phase 13b runs its rank
 body spawned over gloo. This file imports no JAX: it holds the port to
 itself, romcomma_tpu's multi-process layer having no CPU mesh of processes
 to run on."""
@@ -94,16 +96,20 @@ def two_ranks(tmp_path_factory):
     """The two-rank cases (ranks.two_rank_suite) in one spawn, and the
     single-process trees they are held to."""
     tmp = tmp_path_factory.mktemp('two_ranks')
-    roots = dict(zip(('multihost alone', 'multihost', 'run_gpr alone', 'run_gpr'),
-                     _copies(tmp, 'multihost_alone', 'multihost', 'run_gpr_alone', 'run_gpr')))
+    names = ('multihost alone', 'multihost', 'run_gpr alone', 'run_gpr', 'covariant below alone',
+             'covariant below', 'covariant above alone', 'covariant above')
+    roots = dict(zip(names, _copies(tmp, *(name.replace(' ', '_') for name in names))))
     roots['sweep'] = str(tmp / 'sweep')
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(spawn.run, ranks.two_rank_suite, 2, roots['multihost'],
                               roots['run_gpr'], roots['sweep'], _step_inputs(), _fold_inputs(),
-                              STAR, timeout=400)
+                              STAR, (roots['covariant below'], roots['covariant above']),
+                              timeout=400)
         with pinned_device(torch.device('cpu')):
             alone = {'multihost': ranks.multihost_tree(0, roots['multihost alone']),
-                     'run_gpr': ranks.run_gpr(0, roots['run_gpr alone'], 50)}
+                     'run_gpr': ranks.run_gpr(0, roots['run_gpr alone'], 50),
+                     'covariant': ranks.covariant_routing(0, roots['covariant below alone'],
+                                                          roots['covariant above alone'])}
         return spawned.result(), alone, roots
 
 
@@ -178,15 +184,30 @@ def test_benchmark_script_shares_its_cells_over_two_ranks(two_ranks):
     assert list(S['M']) == [7] * len(per_cell[0]) + [9] * len(per_cell[1])
 
 
+def _covariant_point():
+    """A small covariant problem (L N = 300 over two ranks: padding rows
+    live) with F and the noise covariance non-diagonal, float32."""
+    rng = np.random.default_rng(13)
+    X = rng.uniform(-1, 1, (100, 4))
+    Y = np.column_stack([np.sin(2 * X[:, 0]), X[:, 1] ** 2, X[:, 2] + X[:, 3]])
+    Y = Y + 0.05 * rng.normal(size=Y.shape)
+    F = np.array([[1.0, 0.4, 0.2], [0.4, 0.9, -0.1], [0.2, -0.1, 0.8]])
+    noise = np.array([[0.02, 0.005, 0.0], [0.005, 0.03, 0.0], [0.0, 0.0, 0.025]])
+    return tuple(a.astype(np.float32) for a in (X, Y, np.full((3, 4), 1.2), F, noise))
+
+
 def test_chip_smoke_phase_13b_rank_body_on_gloo():
     """chip_smoke.py's phase 13b as it runs on several cards (its rank body
     spawned by name, every rank's result the same bits), on two gloo ranks
-    at a small north-star problem: each engine's float32 LML and gradient
-    held to float64 ExactLML's by phase 13's rule, within
-    MESH_F32_MULTIPLES of ExactLML float32's own distance."""
+    at a small north-star problem and a small covariant one: each engine's
+    float32 LML and gradient held to float64 ExactLML's by phase 13's rule,
+    within MESH_F32_MULTIPLES of ExactLML float32's own distance, and the
+    covariant mesh's to float64 CovariantUpperLML's by phase 13c's, within
+    COVARIANT_MESH_F32_MULTIPLES of CovariantUpperLML float32's."""
     size = (300, 4)
     hypers = (np.full(size[1], 2.0, np.float32), np.float32(1.0), np.float32(0.05))
-    results = chip_smoke.mesh_ranks(2, size, hypers, 'gloo', 120)
+    point = _covariant_point()
+    results = chip_smoke.mesh_ranks(2, size, hypers, point, 'gloo', 120)
     one = DistributedGP(size[0], torch.device('cpu'), dtype=np.float32)
     x, y = one.stage(*north_star.problem(*size))
     at = [torch.as_tensor(h) for h in hypers]
@@ -199,6 +220,14 @@ def test_chip_smoke_phase_13b_rank_body_on_gloo():
         apart = chip_smoke._apart([torch.as_tensor(g) for g in results[0][engine]], f64)
         assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.MESH_F32_MULTIPLES,
                                                  reference)), (engine, apart, reference)
+    X, Y, ls, F, noise = (torch.as_tensor(a) for a in point)
+    f32, f64 = (chip_smoke._covariant_value_and_grads(
+        torch, gp.covariant_upper_lml(X.to(dtype), ls.to(dtype), Y.to(dtype)), F.to(dtype),
+        noise.to(dtype)) for dtype in (torch.float32, torch.float64))
+    reference = chip_smoke._apart(f32, f64)
+    apart = chip_smoke._apart([torch.as_tensor(g) for g in results[0]['covariant']], f64)
+    assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.COVARIANT_MESH_F32_MULTIPLES,
+                                             reference)), (apart, reference)
 
 
 def _check_step(results, raw, x, y):
@@ -252,10 +281,31 @@ def test_dryrun_multichip_on_two_ranks(two_ranks):
 
 
 def test_covariant_mesh_and_upper_engine_are_refused_on_several_ranks(two_ranks):
-    for refused in (r['refusals'] for r in two_ranks[0]):
-        assert len(refused) == 2
-        assert 'covariant mesh' in refused[0] and 'not ported' in refused[0]
-        assert "engine='upper' is single-device only" in refused[1]
+    """On two ranks engine='upper' is still refused by name, and run.gpr's
+    covariant descents route as romcomma_tpu's: below the large-N threshold
+    every fold runs the one-device descent on each rank (no mesh built),
+    as on one rank; at or above it, with L*N at the covariant mesh's
+    threshold or more, the improper fold (L N = 120) runs over the two
+    ranks' mesh and the other folds (L N = 60) on their own. (The name is
+    kept from when several ranks refused both.)"""
+    results, alone, _ = two_ranks
+    assert alone['covariant'] == {'below': [], 'above': []}
+    for r in results:
+        assert "engine='upper' is single-device only" in r['covariant']['upper']
+        assert r['covariant']['below'] == []
+        assert r['covariant']['above'] == [(60, 2, 2)]
+
+
+def test_covariant_run_gpr_on_two_ranks_writes_the_one_rank_tree(two_ranks):
+    """The two ranks' covariant run.gpr writes the one-rank tree (rank 0
+    writing), below the large-N threshold and at it, where the improper
+    fold's descent runs over the mesh and the one rank's on its device."""
+    _, _, roots = two_ranks
+    for case in ('below', 'above'):
+        alone, mesh = roots[f'covariant {case} alone'], roots[f'covariant {case}']
+        want, got = ranks.tree(alone, cut=alone), ranks.tree(mesh, cut=mesh)
+        assert any(path.endswith('gpr.c.a/likelihood/log_marginal.csv') for path in want)
+        _same_tree(want, got)
 
 
 def test_a_failing_rank_stops_every_rank():

@@ -7,8 +7,8 @@ run.gsa on the fold-batched path (fold_parallel=True: the lockstep descents,
 the stacked GSA) on a repository of two equal folds; then the likelihood
 layer, regression.gls and the CSV CLI's run (imported with the sweep CLI),
 with the CPU pinned, as a Python caller pins it, around csv_script.run; and
-the multi-device modules (parallel.mesh, multihost, cyclic_deferred, spawn,
-gsa.mesh, graft_entry) import."""
+the multi-device modules (parallel.mesh, multihost, cyclic_deferred,
+covariant_mesh, spawn, gsa.mesh, graft_entry) import."""
 
 import subprocess
 import sys
@@ -57,7 +57,7 @@ with pinned_device(torch.device('cpu')):
                    ignore_exceptions=False, k=2)
 from romcomma_tpu_torch import graft_entry
 from romcomma_tpu_torch.gsa import mesh as gsa_mesh
-from romcomma_tpu_torch.parallel import cyclic_deferred, mesh, multihost, spawn
+from romcomma_tpu_torch.parallel import covariant_mesh, cyclic_deferred, mesh, multihost, spawn
 assert multihost.process_identity() == (0, 1)
 assert 'romcomma_tpu_torch.parallel.distributed' in sys.modules
 assert 'romcomma_tpu_torch.rom.rom' in sys.modules

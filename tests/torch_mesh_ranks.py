@@ -5,6 +5,8 @@ never load it. Not collected by pytest (no ``test_`` prefix)."""
 
 from __future__ import annotations
 
+import fcntl
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +26,22 @@ def problem():
     X = rng.uniform(-1, 1, (N, M))
     Y = np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2 + 0.1 * rng.normal(size=(N, 1))
     return X, Y, rng.uniform(-1, 1, (9, M)), (rng.uniform(0.5, 1.2, M), 1.3, 0.05)
+
+
+def run_once(folder: Path, name: str, compute):
+    """compute()'s result, computed once for all the test processes that ask
+    under ``folder`` (one per test run, shared by pytest-xdist's workers), so
+    that two test files share one spawn of ranks: the first to ask computes
+    it and keeps it there; the others wait for it and read it."""
+    folder.mkdir(parents=True, exist_ok=True)
+    data = folder / f'{name}.pickle'
+    with open(folder / f'{name}.lock', 'a') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if data.exists():
+            return pickle.loads(data.read_bytes())
+        result = compute()
+        data.write_bytes(pickle.dumps(result))
+        return result
 
 
 def _gathered(ring, local: torch.Tensor) -> np.ndarray:
@@ -85,23 +103,89 @@ def engines(rank: int, super_block=None, maxiter: int = 6) -> dict:
 
 
 def mesh_suite(rank: int, q: int, arrays: dict, slices: tuple) -> dict:
-    """On this group of S ranks: engines(), deferred(q S B) and
-    sweeps(arrays, slices), in one spawn."""
+    """On this group of S ranks: engines(), deferred(q S B), sweeps(arrays,
+    slices) and covariant(q S COV_B), in one spawn."""
     import torch.distributed as dist
-    return {'engines': engines(rank), 'deferred': deferred(rank, q * dist.get_world_size() * B),
-            'sweeps': sweeps(rank, arrays, slices)}
+    S = dist.get_world_size()
+    return {'engines': engines(rank), 'deferred': deferred(rank, q * S * B),
+            'sweeps': sweeps(rank, arrays, slices), 'covariant': covariant(rank, q * S * COV_B)}
+
+
+#: The covariant mesh problem: L N = 75 rows over blocks of COV_B, so the
+#: plan has c = 5, 4, 3 blocks per rank at S = 2, 3, 4 (padding rows live),
+#: and F and the noise covariance non-diagonal.
+COV_N, COV_M, COV_L, COV_B = 25, 3, 3, 8
+COV_MAXITER = 25
+
+
+def covariant_problem():
+    """(X, Y, lengthscales (L, M), F, noise_cov) from a seed."""
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-1, 1, (COV_N, COV_M))
+    Y = np.stack([np.sin(2 * X[:, 0]), X[:, 1] ** 2, X[:, 2] - X[:, 0] * X[:, 1]], axis=-1)
+    Y = Y + 0.05 * rng.standard_normal((COV_N, COV_L))
+    ls = np.array([[0.9, 0.8, 1.1], [0.7, 1.0, 0.9], [1.2, 0.9, 0.8]])
+    F = np.array([[1.0, 0.3, -0.2], [0.3, 0.8, 0.1], [-0.2, 0.1, 0.9]])
+    noise_cov = np.array([[0.05, 0.01, 0.0], [0.01, 0.04, -0.005], [0.0, -0.005, 0.06]])
+    return X, Y, ls, F, noise_cov
+
+
+def covariant(rank: int, super_block: int) -> dict:
+    """parallel.covariant_mesh on this mesh, float64, at ``super_block``: the
+    gram (stored rows; rank 0 sends it), the LML and its (F, noise_cov)
+    gradient, the LML without a gradient, and a descent of COV_MAXITER
+    iterations from (F, noise_cov) with F's off-diagonals trained, with
+    every point it evaluated."""
+    from romcomma_tpu_torch.models.params import covariant_init, covariant_mask
+    from romcomma_tpu_torch.parallel import covariant_mesh
+    from romcomma_tpu_torch.parallel.distributed import make_n_mesh
+    X, Y, ls, F, noise_cov = covariant_problem()
+    gp = covariant_mesh.DistributedCovariantGP(COV_N, COV_L, make_n_mesh(), block=COV_B,
+                                               dtype=np.float64, super_block=super_block)
+    st = gp.stage(X, Y, ls)
+    p = [torch.tensor(a, requires_grad=True) for a in (F, noise_cov)]
+    out = {'q': gp.engine.q, 'c': gp.plan.c,
+           'gram': _gathered(gp.engine.ring, gp._gram(st, *(t.detach() for t in p)))}
+    if rank:                                        # only rank 0 sends the big array
+        out.pop('gram')
+    lml = gp.lml_fn(st)
+    value = lml(*p)
+    out['lml'] = float(value.detach())
+    out['grad'] = [g.numpy() for g in torch.autograd.grad(value, p)]
+    with torch.no_grad():
+        out['lml, no gradient'] = float(lml(*p))
+    seen, original = [], gp.lml_fn
+
+    def recording(st_):
+        fn = original(st_)
+
+        def lml_(F_, noise_):
+            seen.append(F_.detach().numpy().tobytes() + noise_.detach().numpy().tobytes())
+            return fn(F_, noise_)
+
+        return lml_
+
+    gp.lml_fn = recording
+    raw = covariant_init(F, ls, noise_cov, on=torch.device('cpu'))
+    raw_opt, lml_opt, iterations, stop = gp.calibrate(
+        X, Y, raw, covariant_mask(kernel_covariance=True), maxiter=COV_MAXITER)
+    out['calibrate'] = (seen, {k: v.numpy() for k, v in raw_opt.items()}, float(lml_opt),
+                        iterations, stop)
+    return out
 
 
 def two_rank_suite(rank: int, multihost_root: str, run_gpr_root: str, sweep_root: str,
-                   step: tuple, folds: tuple, star: tuple) -> dict:
+                   step: tuple, folds: tuple, star: tuple, covariant_roots: tuple) -> dict:
     """The two-rank cases in one spawn: multihost_tree, run_gpr (threshold
     50), sweep, sharded_step on a 1 x 2 mesh, folds_sharded, north_star,
-    refusals, and graft_entry.dryrun_multichip(2) in this group."""
+    covariant_routing, and graft_entry.dryrun_multichip(2) (its covariant
+    step included) in this group."""
     from romcomma_tpu_torch import graft_entry
     out = {'multihost': multihost_tree(rank, multihost_root),
            'run_gpr': run_gpr(rank, run_gpr_root, 50), 'sweep': sweep(rank, sweep_root),
            'step': sharded_step(rank, *step, 1), 'folds': folds_sharded(rank, *folds),
-           'north_star': north_star(rank, *star), 'refusals': refusals(rank)}
+           'north_star': north_star(rank, *star),
+           'covariant': covariant_routing(rank, *covariant_roots)}
     graft_entry.dryrun_multichip(2)
     return out
 
@@ -231,25 +315,48 @@ def north_star(rank: int, N_: int, M_: int, maxiter: int) -> tuple:
     return out['engine'], out['ranks'], out['lml'], out['iters'], out['S1_first3']
 
 
-def refusals(rank: int) -> list:
-    """On this group of several ranks: the covariant descent at L*N >=
-    COVARIANT_MESH_MIN_LN and engine='upper', each refused by name."""
-    from romcomma_tpu_torch.models import gp
-    from romcomma_tpu_torch.models.params import covariant_mask
+#: covariant_routing's lowered L*N from which a covariant descent takes the
+#: mesh (covariant_mesh.COVARIANT_MESH_MIN_LN), and its large-N threshold
+#: (meta['large_n_threshold']) where the route is to be large: the tiny
+#: repository's improper fold (60 rows, 2 outputs: L N = 120) reaches both,
+#: its other folds (L N = 60) neither.
+COV_MESH_MIN_LN, COV_LARGE_N = 64, 100
+
+
+def covariant_routing(rank: int, below_root: str, above_root: str) -> dict:
+    """user.run.gpr's covariant pass over this group, with the covariant
+    mesh's L*N threshold lowered to COV_MESH_MIN_LN in this process: on
+    below_root at the default large-N threshold, on above_root at
+    COV_LARGE_N. Returns, for each, the (N, L, ranks) of every
+    DistributedCovariantGP it built; and what engine='upper' raises on
+    several ranks."""
+    from romcomma_tpu_torch import user
+    from romcomma_tpu_torch.base.definitions import in_process_group
+    from romcomma_tpu_torch.data.storage import Repository
+    from romcomma_tpu_torch.parallel import covariant_mesh
     from romcomma_tpu_torch.parallel import distributed as dist
-    n = dist.COVARIANT_MESH_MIN_LN // 2
-    x = y = torch.zeros((n, 2), dtype=torch.float64)
-    refused = []
+    cls, out = covariant_mesh.DistributedCovariantGP, {}
+    original = (covariant_mesh.COVARIANT_MESH_MIN_LN, cls.__init__)
+
+    def recorded(self, *args, **kwargs):
+        original[1](self, *args, **kwargs)
+        built.append((self.N, self.L, self.plan.S))
+
+    covariant_mesh.COVARIANT_MESH_MIN_LN, cls.__init__ = COV_MESH_MIN_LN, recorded
     try:
-        gp.calibrate_covariant({'raw_kernel_chol_diag': torch.zeros(2, dtype=torch.float64)},
-                               covariant_mask(), x, y)
-    except NotImplementedError as error:
-        refused.append(str(error))
-    try:
-        dist.DistributedGP(10, dist.make_n_mesh(), engine='upper')
-    except ValueError as error:
-        refused.append(str(error))
-    return refused
+        for key, root, meta in (('below', below_root, {}),
+                                ('above', above_root, {'large_n_threshold': COV_LARGE_N})):
+            built = out[key] = []
+            user.run.gpr('gpr', Repository(root), is_read=False, is_covariant=True,
+                         is_isotropic=False, maxiter=15, **meta)
+    finally:
+        covariant_mesh.COVARIANT_MESH_MIN_LN, cls.__init__ = original
+    if in_process_group():
+        try:
+            dist.DistributedGP(10, dist.make_n_mesh(), engine='upper')
+        except ValueError as error:
+            out['upper'] = str(error)
+    return out
 
 
 def fails_on_rank_one(rank: int) -> None:
