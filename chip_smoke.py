@@ -63,11 +63,14 @@ Phases (each prints its result and its time; none catches its own failure):
      to the CPU's from the same float64 inputs;
   8. the large-N variant route (parallel.distributed.DistributedGP):
      a. the north star, romcomma_tpu_torch.north_star at N=20000, M=30,
-        trained to convergence in float32 (its grams through the kernel), its
-        S1 held to the problem's analytic indices, its optimum to
-        romcomma_tpu's recorded LML and to a float64 descent warm-started
-        from it; the residual of its float64 posterior, its per-phase times
-        and peak memory, and one value+grad profiled by kernel and by op;
+        trained to convergence in float32 (its grams through the kernel) on
+        its production route, 'cyclic2' on one card (romcomma_tpu's choice
+        from N=16384), its S1 held to the problem's analytic indices, its
+        optimum to romcomma_tpu's recorded LML and to a float64 descent
+        (engine='upper') warm-started from it; the residual of its float64
+        posterior, its per-phase times and peak memory by stage, one
+        value+grad timed beside engine='upper''s (at NORTH_STAR_UPPER_OPTIMUM,
+        where ExactLML float32 factorizes) and profiled by kernel and by op;
      b. run.gpr (variant, isotropic then anisotropic, maxiter=20, float32,
         tested) on OAKLEY2004 at N=10240, M=30, K=2: the two 5120-row folds
         take the small route and the improper 10240-row fold the large one
@@ -76,6 +79,19 @@ Phases (each prints its result and its time; none catches its own failure):
      c. at N=1024, M=10, float64, the card's DistributedGP against the CPU's
         from the same inputs: LML, gradient, posterior alpha, predictions
         and the indices of two kinds with standard errors;
+     d. the north star at N=50000, M=30 on one card ('cyclic2', Npad 50176:
+        one float64 (Npad, Npad) buffer written from 13 float32 strips of
+        the kernel, 105 pair tiles per value+grad), at most 30
+        iterations, the GSA of both kinds without errors, S1 within
+        NORTH_STAR_S1_TOL of the problem's own; the float32 LML at the start
+        within phase 4's bound of the float64 one; one value+grad stage by
+        stage (ring gram, factor, solves, in-place inverse, pair sweep) and
+        the float64 posterior, each with its time and peak memory; a strip
+        of the gram as the route launches it (4096 rows against all) and the
+        whole ring tile (50176^2, 30) u is v, whose output passes 2^31
+        floats: its 128-row strips from the row where it does, and the last,
+        against the plain version, its forward timed beside the plain one
+        and its bound;
   9. ROM (romcomma_tpu_torch.rom_scale, the port of benchmarks/rom_scale.py:
      N=8192, M=10, a planted plane, float32 calibrations through the kernel):
      a. the 'sobol' rotation for 3 iterations: the planted plane within 5
@@ -113,31 +129,36 @@ Phases (each prints its result and its time; none catches its own failure):
      checks.
  13. the multi-device routes: the variant mesh engines (parallel.distributed,
      parallel.cyclic_deferred, gsa.mesh) at the north star's problem
-     (N=20000, M=30, float32, phase 8a's optimum), and the covariant mesh:
+     (N=20000, M=30, float32, at NORTH_STAR_UPPER_OPTIMUM, a recorded
+     optimum of its float32 descent on engine='upper'), and the covariant
+     mesh:
      a. the kernel at the mesh tiles' shapes ((20224^2, 30), the ring's one
         tile; (3584^2, 30) two operands, 'cyclic2''s pair tiles) against its
         plain version, timed, with their bounds; the one-device reference
-        (ExactLML float32 and float64, the float64 posterior, the indices
+        (engine='upper': ExactLML float32 and float64, the float64 posterior, the indices
         with T and their one-ulp spreads); then, in an NCCL group of this
         process alone (world size 1), DistributedGP with engine='cyclic' and
         'cyclic2' over make_n_mesh(): at the north star's start (MESH_START)
-        its float32 LML within phase 4's bound of ExactLML's; at phase 8a's
-        optimum its ring gram held to the one-device gram (VALUE_TOL), its
+        its float32 LML within phase 4's bound of ExactLML's; at
+        NORTH_STAR_UPPER_OPTIMUM its ring gram held to the one-device gram
+        (VALUE_TOL), its
         float32 LML, dls, ds2 and dnoise within MESH_F32_MULTIPLES of
         ExactLML float32's own distance from float64 ExactLML, and its
         float64 ones within MESH_F64_SHARE of it; its float64 posterior alpha and predictions
-        within CARD_CPU_TOL of the one-device route's, its first-order and
+        within CARD_CPU_TOL of engine='upper''s, its first-order and
         total indices (the V pass and W/T sweep over the mesh), S and T
         squared, within ULP_SPREADS of their one-ulp spreads (S itself moves
         by ~1e-6 under a one-ulp move there); value+grad and factor ms
-        (median of 5) beside the one-device route's, the value+grad's peak
+        (median of 5) beside engine='upper''s, the value+grad's peak
         memory above what was held before it; a calibrate of 5 iterations
         from the north star's start, its unit-gram launches counted by shape;
         then, after 13c in the same group, graft_entry.dryrun_multichip(1),
         its covariant step included;
      b. where the machine has two cards or more, both engines and the
-        covariant mesh on min(4, cards) spawned NCCL ranks, held as in 13a
-        and 13c and rank to rank bit for bit; else a line saying why it did
+        covariant mesh on min(4, cards) spawned NCCL ranks, the engines'
+        float32 LML parts within MESH_RANKS_F32_MULTIPLES (several ranks
+        keep romcomma_tpu's float32 arithmetic), the covariant mesh's as in
+        13c, and rank to rank bit for bit; else a line saying why it did
         not run;
      c. in 13a's group, the covariant mesh (parallel.covariant_mesh:
         DistributedCovariantGP on 'cyclic2') at phase 7's improper fold
@@ -157,7 +178,7 @@ Phases (each prints its result and its time; none catches its own failure):
 
 The last two lines of standard output are the kernels' JSON record and the
 device's; the record counts the unit-gram launches of the main paths, run.gpr
-of phase 4 and of phase 7, the north star and run.gpr of phase 8, the two
+of phase 4 and of phase 7, both north stars and run.gpr of phase 8, the two
 ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines' and
 the covariant mesh's calibrates of phase 13, each counted from 0 just
 before it runs, and, as a path of the same kernel, its batched launches among
@@ -1557,11 +1578,79 @@ def device_time_shares(torch, step):
     return wall, busy, shares
 
 
+def _engine_launches(dgp) -> int:
+    """Unit-gram launches of one float32 value+grad of dgp on one device: 1
+    for 'upper' (one gram); for the engines the gram's float32 strips
+    (ceil(Npad / TILE_STRIP_ROWS), written into the float64 gram), then
+    the gram once more for 'cyclic', or the pair tiles of NS super panels,
+    NS (NS + 1) / 2, for 'cyclic2'."""
+    if dgp.engine == 'upper':
+        return 1
+    from romcomma_tpu_torch.parallel.cyclic_deferred import super_sizes
+    from romcomma_tpu_torch.parallel.distributed import TILE_STRIP_ROWS
+    strips = -(-dgp.plan.Npad // TILE_STRIP_ROWS)
+    if dgp.engine == 'cyclic':
+        return strips + 1
+    panels = len(super_sizes(dgp.plan, dgp._ops.q))
+    return strips + panels * (panels + 1) // 2
+
+
+def _valgrad_ms(torch, gram_kernels, dgp, x, y, hypers, n=3):
+    """(the mean host-clock ms of n value+grads of dgp at hypers, after one
+    untimed; the unit-gram launches of each)."""
+    def step():
+        p = [t.clone().requires_grad_(True) for t in hypers]
+        torch.autograd.grad(dgp.lml(*p, x, y), p)
+
+    step()
+    torch.cuda.synchronize()
+    before, t0 = gram_kernels.LAUNCHES, time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, (gram_kernels.LAUNCHES - before) / n
+
+
+def _original_order(dgp, t):
+    """A staged (rows, ...) tensor of dgp in the original row order."""
+    from romcomma_tpu_torch.parallel.distributed import _from_stored_t
+    return t if dgp.plan is None else _from_stored_t(dgp.plan, t)
+
+
+#: Phase 13's point, where phase 8a also times engine='upper': the optimum
+#: of the north star's float32 descent on engine='upper' (ExactLML, all
+#: float32) from its start, N=20000, M=30 (``tools/north_star_descents.py``
+#: prints it; NVIDIA H100 80GB HBM3, PERF.md). ExactLML float32, phase 13's
+#: reference, factorizes there; at the 'cyclic2' route's optimum (s2/noise ~
+#: 1.2e4) it breaks down.
+NORTH_STAR_UPPER_OPTIMUM = {
+    'ls': (3.3341991901397705, 5.206558704376221, 117.9267807006836, 120.92347717285156,
+           126.21414184570312, 122.28045654296875, 119.0213394165039, 121.32362365722656,
+           118.91744995117188, 123.55664825439453, 120.57200622558594, 124.30779266357422,
+           119.53321838378906, 120.8245849609375, 119.1611328125, 120.52678680419922,
+           122.14530944824219, 118.35286712646484, 120.618896484375, 119.43183898925781,
+           122.6192855834961, 123.26801300048828, 123.48995208740234, 122.56403350830078,
+           121.54754638671875, 120.69462585449219, 120.63131713867188, 121.17060852050781,
+           121.3062973022461, 120.42841339111328),
+    's2': 15.736834526062012,
+    'noise': 0.010294073261320591}
+
+
+def upper_hypers():
+    """NORTH_STAR_UPPER_OPTIMUM as (ls (M,), s2, noise), float32 numpy."""
+    import numpy as np
+    o = NORTH_STAR_UPPER_OPTIMUM
+    return (np.asarray(o['ls'], dtype=np.float32), np.float32(o['s2']), np.float32(o['noise']))
+
+
 def north_star_phase(torch, gram_kernels):
-    """Phase 8a: the north star on the card in float32, its unit-gram
+    """Phase 8a: the north star on the card in float32 on its production
+    route ('cyclic2' from N = CYCLIC2_SINGLE_CHIP_MIN_N), its unit-gram
     launches counted; its S1 against the problem's own; its optimum against
-    romcomma_tpu's LML and a float64 descent warm-started from it; the
-    float64 posterior's residual; one value+grad profiled."""
+    romcomma_tpu's LML and a float64 descent (engine='upper') warm-started
+    from it; the float64 posterior's residual; one value+grad timed at
+    its optimum, and at NORTH_STAR_UPPER_OPTIMUM beside engine='upper''s
+    there; the production one profiled."""
     import numpy as np
     from romcomma_tpu_torch import north_star
     from romcomma_tpu_torch.ops.gram import rbf_gram
@@ -1574,19 +1663,21 @@ def north_star_phase(torch, gram_kernels):
     print(json.dumps(out), flush=True)
     error = max(abs(a - b) for a, b in zip(out['S1_first3'], NORTH_STAR_S1))
     reference = max(abs(a - b) for a, b in zip(out['S1_first3'], NORTH_STAR_REFERENCE_S1))
-    print(f'north star: {out["iters"]} iterations, LML {out["lml"]:.6f}, unit-gram kernel '
-          f'launches {launches} ({out["train_launches"]} in the descent, one per evaluation); '
-          f'S1_first3 {out["S1_first3"]} against the problem\'s '
+    print(f'north star on the {out["engine"]!r} route: {out["iters"]} iterations, LML '
+          f'{out["lml"]:.6f}, unit-gram kernel launches {launches} ({out["train_launches"]} in '
+          f'the descent); S1_first3 {out["S1_first3"]} against the problem\'s '
           f'{[round(v, 5) for v in NORTH_STAR_S1]}: max |diff| {error:.4f} (tol '
           f'{NORTH_STAR_S1_TOL}); against romcomma_tpu\'s record {list(NORTH_STAR_REFERENCE_S1)}: '
-          f'{reference:.4f}; peak device memory {out["peak_gib"]:.2f} GiB', flush=True)
+          f'{reference:.4f}; peak device memory {out["peak_gib"]:.2f} GiB ({out["held_gib"]:.2f} '
+          f'held before it), by stage '
+          + ', '.join(f'{k} {v:.2f}' for k, v in out['peak_gib_by_stage'].items()), flush=True)
+    require(out['engine'] == 'cyclic2', out['engine'])
     require(launches > 0, 'the north star never launched the unit-gram kernel')
     require(math.isfinite(out['lml']), out['lml'])
     require(error <= NORTH_STAR_S1_TOL, (out['S1_first3'], NORTH_STAR_S1))
     dgp, x, y = state['dgp'], state['x_dev'], state['y_dev']
     hypers = tuple(state[k] for k in ('ls', 's2', 'noise'))
-    MAIN_PATH['north_star_hypers'] = tuple(h.detach().cpu().numpy() for h in hypers)
-    dgp64 = DistributedGP(N_, dtype=np.float64)
+    dgp64 = DistributedGP(N_, dtype=np.float64, engine='upper')
     x64s, y64s = dgp64.stage(state['X'], state['Y'])
     at_optimum = dgp64.lml(*hypers, x64s, y64s).item()
     t0 = time.perf_counter()
@@ -1597,8 +1688,8 @@ def north_star_phase(torch, gram_kernels):
     torch.cuda.synchronize()
     moved = max(abs(S64[m] - out['S1_first3'][m]) for m in range(3))
     print(f'float64 LML at the float32 optimum {at_optimum:.6f} (romcomma_tpu\'s optimum '
-          f'{NORTH_STAR_REFERENCE_LML}); a float64 descent warm-started there: '
-          f'{iterations64} iterations, LML {lml64:.6f}, S1_first3 '
+          f'{NORTH_STAR_REFERENCE_LML}); a float64 descent (engine=\'upper\') warm-started '
+          f'there: {iterations64} iterations, LML {lml64:.6f}, S1_first3 '
           f'{[round(S64[m], 4) for m in range(3)]} (max |diff| to float32 {moved:.4f}), '
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     require(at_optimum >= NORTH_STAR_REFERENCE_LML and moved <= NORTH_STAR_S1_TOL,
@@ -1611,35 +1702,203 @@ def north_star_phase(torch, gram_kernels):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         del chol
-        x64, y64 = x.double(), y.double()
+        alpha = _original_order(dgp, alpha)
+        x64, y64 = (_original_order(dgp, t).double() for t in (x, y))
         K = rbf_gram(x64, x64, hypers[0].double(), hypers[1].double())
         K.diagonal().add_(hypers[2].double())
         residual = float(torch.linalg.norm(y64 - K @ alpha) / torch.linalg.norm(y64))
         del K
-    print(f'float64 posterior: alpha in {seconds:.3f} s; |y - K alpha| / |y| = {residual:.3e} '
-          f'(ls {hypers[0].cpu().numpy().round(4).tolist()}, s2 {hypers[1].item():.6f}, noise '
-          f'{hypers[2].item():.6e})', flush=True)
+    print(f'float64 posterior ({dgp.engine!r}): alpha in {seconds:.3f} s; |y - K alpha| / |y| = '
+          f'{residual:.3e} (ls {hypers[0].cpu().numpy().round(4).tolist()}, s2 '
+          f'{hypers[1].item():.6f}, noise {hypers[2].item():.6e})', flush=True)
     require(residual < 1e-6, residual)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, per_step = _valgrad_ms(torch, gram_kernels, dgp, x, y, hypers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    at = tuple(torch.as_tensor(h, device=CARD) for h in upper_hypers())
+    there, _ = _valgrad_ms(torch, gram_kernels, dgp, x, y, at)
+    upper = DistributedGP(N_, dtype=np.float32, engine='upper')
+    xu, yu = upper.stage(state['X'], state['Y'])
+    upper_wall, upper_step = _valgrad_ms(torch, gram_kernels, upper, xu, yu, at)
+    del upper, xu, yu
+    print(f'N={N_}: one float32 value+grad on the {dgp.engine!r} route at its optimum '
+          f'({out["iters"]} iterations) {wall:.2f} ms wall (mean of 3), {per_step:.0f} unit-gram '
+          f'launches per step, peak device memory {peak:.2f} GiB; at NORTH_STAR_UPPER_OPTIMUM '
+          f'{there:.2f} ms, engine=\'upper\' (ExactLML) there {upper_wall:.2f} ms, '
+          f'{upper_step:.0f} launch: {there / upper_wall:.3f} of it', flush=True)
+    require(per_step == _engine_launches(dgp) and upper_step == 1, (per_step, upper_step))
 
     def step():
         p = [t.clone().requires_grad_(True) for t in hypers]
         torch.autograd.grad(dgp.lml(*p, x, y), p)
 
-    step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before, t0 = gram_kernels.LAUNCHES, time.perf_counter()
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
-    per_step = (gram_kernels.LAUNCHES - before) / 3
-    print(f'N={N_}: one float32 value+grad (ExactLML) {wall:.2f} ms wall (mean of 3), '
-          f'{per_step:.0f} unit-gram launch per step, peak device memory '
-          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB', flush=True)
-    require(per_step == 1, per_step)
     device_time_shares(torch, step)
     return launches
+
+
+#: Phase 8d: the north star at N=50000 on one card ('cyclic2', Npad 50176),
+#: its descent cut at NORTH_STAR_LARGE[2] iterations (romcomma_tpu converged
+#: in 15 there).
+NORTH_STAR_LARGE = (50000, 30, 30)
+#: The ring tile's first row whose output offset, row x Npad, passes 2^31
+#: floats, and the 128-row strips past it held to the plain version.
+STRIP_ROWS = 128
+
+
+def engine_stages(torch, dgp, x, y, hypers) -> dict:
+    """One value+grad of a one-device 'cyclic2' dgp at hypers, stage by
+    stage as ``MeshLML`` runs it: {stage: (host-clock s, peak device GiB in
+    that stage)}, the stages the ring gram (float32 strips through the
+    kernel, written into the float64 gram, the noise added there), the
+    factor, the solves and log-det,
+    the in-place inverse and the pair sweep; each stage's peak counts what
+    it holds with what came before it."""
+    ops, stages = dgp._ops, {}
+    ls, s2, noise = (h.detach() for h in hypers)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30)
+        return result
+
+    with torch.no_grad():
+        K = timed('ring gram', lambda: ops.gram(x, ls, s2, noise, torch.float64))
+        F = timed('factor', lambda: ops.chol(K))
+        del K
+        alpha = timed('solves', lambda: (ops.bwd(F, ops.fwd(F, y.to(F.dtype))),
+                                         ops.logdiag(F)))[0]
+        V = timed('in-place inverse', lambda: ops.residual(F))
+        del F
+        timed('pair sweep', lambda: ops.grads(V, alpha, x, ls, s2, noise))
+        del V
+    return stages
+
+
+def check_large_tile(torch, gram_kernels, x, ls):
+    """The unit-gram kernel at 8d's shapes from its scaled rows: the last
+    strip of the gram as the route launches it (TILE_STRIP_ROWS rows
+    against all Npad, two operands) against the plain version; the whole
+    ring tile (Npad^2, M) u is v, whose output passes 2^31 floats: its
+    128-row strips at and past the row where it does, and the last, against
+    the plain version; its forward timed (CUDA events) beside the plain
+    one's and its bound. Returns the max |kernel - plain| of all of them."""
+    from romcomma_tpu_torch.parallel.distributed import TILE_STRIP_ROWS
+    u = (x / ls).contiguous()
+    Npad, M_ = u.shape
+    last = u[Npad - TILE_STRIP_ROWS:]
+    strip_err = (gram_kernels.unit_gram_cuda(last, u)
+                 - gram_kernels.unit_gram_plain(last, u)).abs().max().item()
+    (strip_ms,), (strip_plain,) = (
+        spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(last, u)], samples=10, calls=2),
+        spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(last, u)], samples=3, calls=1))
+    strip_bound, strip_by = forward_bound_ms(TILE_STRIP_ROWS, Npad, M_, shared=False)
+    mark = (2 ** 31) // Npad
+    starts = sorted(r0 for r0 in {0, mark // STRIP_ROWS * STRIP_ROWS,
+                                  (mark + 1024) // STRIP_ROWS * STRIP_ROWS, Npad - STRIP_ROWS}
+                    if r0 + STRIP_ROWS <= Npad)
+    E = gram_kernels.unit_gram_cuda(u, u)
+    torch.cuda.synchronize()
+    errors = {}
+    for r0 in starts:
+        plain = gram_kernels.unit_gram_plain(u[r0:r0 + STRIP_ROWS], u)
+        errors[r0] = (E[r0:r0 + STRIP_ROWS] - plain).abs().max().item()
+        require(bool(torch.isfinite(E[r0:r0 + STRIP_ROWS]).all()), ('strip', r0))
+    del E, plain
+    (kernel,) = spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(u, u)], samples=5, calls=1,
+                          warmup=1)
+    torch.cuda.empty_cache()
+    (plain_ms,) = spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(u, u)], samples=1,
+                            calls=1, warmup=0)
+    bound, bound_by = forward_bound_ms(Npad, Npad, M_, shared=True)
+    err = max(strip_err, *errors.values())
+    print(f'the route\'s last gram strip ({TILE_STRIP_ROWS} x {Npad}, {M_}), two operands: max '
+          f'|kernel - plain| {strip_err:.3e}, forward ms kernel median {strip_ms[1]:.4f} (min '
+          f'{strip_ms[0]:.4f}), plain {strip_plain[1]:.4f}, bound {strip_bound:.4f} ms '
+          f'({strip_by}), kernel at {strip_bound / strip_ms[1]:.3f} of it; ring tile ({Npad}^2, '
+          f'{M_}), u is v: '
+          f'{Npad * Npad:.4e} floats, row {mark} the first '
+          f'past 2^31; max |kernel - plain| of the {STRIP_ROWS}-row strips from rows '
+          + ', '.join(f'{r0}: {e:.3e}' for r0, e in errors.items()) + f' (tol {VALUE_TOL}); '
+          f'forward ms kernel min / median / max {kernel[0]:.4f} / {kernel[1]:.4f} / '
+          f'{kernel[2]:.4f} (5 calls), plain {plain_ms[1]:.4f}; bound {bound:.4f} ms '
+          f'({bound_by}), kernel at {bound / kernel[1]:.3f} of it', flush=True)
+    require(err <= VALUE_TOL, (strip_err, errors))
+    return err
+
+
+def north_star_large_phase(torch, gram_kernels):
+    """Phase 8d: the north star at N=50000, M=30 on one card, float32, on
+    its production route ('cyclic2'): at most NORTH_STAR_LARGE[2]
+    iterations, the GSA of both kinds without errors, S1 within
+    NORTH_STAR_S1_TOL of the problem's own, the float32 LML at the start
+    within phase 4's bound of the float64 one, one value+grad stage by stage
+    (time and peak memory), the float64 posterior's peak, and the ring
+    tile's strips past 2^31 floats against the plain version. Returns (the
+    unit-gram launches of the run, the strips' max |kernel - plain|)."""
+    import numpy as np
+    from romcomma_tpu_torch import north_star
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    N_, M_, maxiter = NORTH_STAR_LARGE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gram_kernels.LAUNCHES = 0
+    out, state = north_star.run(N_, M_, maxiter)
+    launches = gram_kernels.LAUNCHES
+    print(json.dumps(out), flush=True)
+    dgp, x, y = state['dgp'], state['x_dev'], state['y_dev']
+    hypers = tuple(state[k] for k in ('ls', 's2', 'noise'))
+    error = max(abs(a - b) for a, b in zip(out['S1_first3'], NORTH_STAR_S1))
+    print(f'north star N={N_} on the {out["engine"]!r} route (Npad {dgp.plan.Npad}, '
+          f'{_engine_launches(dgp)} unit-gram launches per value+grad): {out["iters"]} '
+          f'iterations (at most {maxiter}), LML '
+          f'{out["lml"]:.6f}, train {out["train_s"]:.2f} s, value+grad {out["valgrad_s"]:.3f} s, '
+          f'GSA of both kinds {out["gsa_both_kinds_s"]:.2f} s (warm '
+          f'{out["gsa_both_kinds_warm_s"]:.2f} s), end to end {out["end_to_end_s"]:.2f} s; '
+          f'unit-gram launches {launches} ({out["train_launches"]} in the descent); S1_first3 '
+          f'{out["S1_first3"]} against the problem\'s {[round(v, 5) for v in NORTH_STAR_S1]}: '
+          f'max |diff| {error:.4f} (tol {NORTH_STAR_S1_TOL}); peak device memory '
+          f'{out["peak_gib"]:.2f} GiB ({out["held_gib"]:.2f} held before it), by stage '
+          + ', '.join(f'{k} {v:.2f}' for k, v in out['peak_gib_by_stage'].items()), flush=True)
+    require(out['engine'] == 'cyclic2' and launches > 0, (out['engine'], launches))
+    require(out['iters'] <= maxiter and math.isfinite(out['lml']), (out['iters'], out['lml']))
+    require(error <= NORTH_STAR_S1_TOL, (out['S1_first3'], NORTH_STAR_S1))
+    start = (torch.full((M_,), 2.0, device=CARD), torch.tensor(1.0, device=CARD),
+             torch.tensor(0.05, device=CARD))
+    with torch.no_grad():
+        lml32 = dgp.lml(*start, x, y).item()
+    dgp64 = DistributedGP(N_, dtype=np.float64, dense_kernels=True)
+    x64, y64 = dgp64.stage(state['X'], state['Y'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lml64 = dgp64.lml(*(t.double() for t in start), x64, y64).item()
+    torch.cuda.synchronize()
+    seconds64, peak64 = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+    del dgp64, x64, y64
+    bound = 10 * N_ * EPS['float32'] * (1.0 / 0.05 + 1.0)
+    print(f'at the start (ls 2, s2 1, noise 0.05): LML float32 {lml32:.6f}, float64 '
+          f'{lml64:.6f} ({dgp.engine!r} in float64, {seconds64:.2f} s, peak {peak64:.2f} GiB); '
+          f'|diff| {abs(lml32 - lml64):.3e} (phase 4 bound {bound:.3e})', flush=True)
+    require(abs(lml32 - lml64) <= bound, (lml32, lml64, bound))
+    stages = engine_stages(torch, dgp, x, y, hypers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        alpha, chol = dgp.posterior_alpha(*hypers, x, y)
+        torch.cuda.synchronize()
+        stages['float64 posterior'] = (time.perf_counter() - t0,
+                                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        del alpha, chol
+    print(f'N={N_} float32 value+grad on {dgp.engine!r} stage by stage (s, peak GiB): '
+          + ', '.join(f'{k} {t:.3f} s {p:.2f} GiB' for k, (t, p) in stages.items()), flush=True)
+    return launches, check_large_tile(torch, gram_kernels, x, hypers[0].detach())
 
 
 def trained_variant(torch, folder, dtype, on=None):
@@ -1755,7 +2014,7 @@ def check_exact_lml(torch, gram_kernels, fold, name):
     with torch.no_grad():
         c = params.variant_constrain(trained_variant(torch, fold.folder / name, torch.float32))
     hypers = (c['lengthscales'][0], c['variance'][0], c['noise'][0])
-    dgp = DistributedGP(N, dtype=torch.float32)
+    dgp = DistributedGP(N, dtype=torch.float32, engine='upper')
 
     def step():
         p = [t.clone().requires_grad_(True) for t in hypers]
@@ -1785,7 +2044,7 @@ def check_exact_lml(torch, gram_kernels, fold, name):
     launches = gram_kernels.LAUNCHES
     readings = {'float32': value_and_grads(lambda *p: dgp.lml(*p, X, Y[:, 0]), hypers)}
     require(gram_kernels.LAUNCHES == launches + 1, 'the float32 gram missed the kernel')
-    dgp64 = DistributedGP(N, dtype=torch.float64)
+    dgp64 = DistributedGP(N, dtype=torch.float64, engine='upper')
     readings['float64'] = value_and_grads(lambda *p: dgp64.lml(*p, X64, y64), hypers64)
     want = value_and_grads(autograd_lml, hypers64)
     ls64, s2_64, noise64 = hypers64
@@ -1838,7 +2097,7 @@ def distributed_tables(torch, inputs, on):
     import numpy as np
     from romcomma_tpu_torch.parallel.distributed import DistributedGP
     X, Y, Xs, hypers = inputs
-    dgp = DistributedGP(len(X), mesh=on, dtype=np.float64)
+    dgp = DistributedGP(len(X), mesh=on, dtype=np.float64, engine='upper')
     x, y = dgp.stage(X, Y)
     p = [torch.tensor(h, dtype=torch.float64, device=on, requires_grad=True) for h in hypers]
     value = dgp.lml(*p, x, y)
@@ -2441,35 +2700,45 @@ def sweep_phase(torch, user, gram_kernels):
 # --------------------------------------------------------------------------- #
 
 #: The mesh engines, each at the north star's problem (N=20000, M=30,
-#: float32) from phase 8a's optimum.
+#: float32) at NORTH_STAR_UPPER_OPTIMUM.
 MESH_ENGINES = ('cyclic', 'cyclic2')
 #: Value+grads and factorizations timed per engine (the median is reported),
 #: and the iterations of each engine's calibrate.
 MESH_TIMED, MESH_MAXITER = 5, 5
-#: The kernel's shapes on the mesh path of one rank: the ring's one tile, the
-#: padded rows against themselves (Npad = 20224 for B=256), and the pair
-#: tiles of 'cyclic2' (q B = 3584 rows, two operands).
-MESH_TILE_SHAPES = ((20224, 20224, 30, True), (3584, 3584, 30, False))
+#: The kernel's shapes on the mesh path of one rank (Npad = 20224 for
+#: B=256): the strips of the float64 gram (TILE_STRIP_ROWS rows against all,
+#: two operands), the ring's one tile, the padded rows against themselves
+#: (the gram 'cyclic''s backward rebuilds in float32), and the pair tiles of
+#: 'cyclic2' (q B = 3584 rows, two operands).
+MESH_TILE_SHAPES = ((4096, 20224, 30, False), (20224, 20224, 30, True),
+                    (3584, 3584, 30, False))
 #: Ranks of phase 13b, where the machine has several cards.
 MESH_RANKS = 4
 #: The north star's own start (ls 2, s2 1, noise 0.05), where phase 8a's
-#: descent and each engine's calibrate begin. There each engine's float32
+#: descents and each engine's calibrate begin. There each engine's float32
 #: LML is held to ExactLML float32's within phase 4's bound (s2/noise = 20);
-#: every other check of phase 13 is made at phase 8a's optimum (s2/noise
-#: ~ 1e3), where the large route's descent ends and that bound does not hold
-#: for ExactLML itself (its float32 LML lies 61 from float64 there).
+#: every other check of phase 13 is made at NORTH_STAR_UPPER_OPTIMUM
+#: (s2/noise ~ 1.5e3), where that bound does not hold for ExactLML itself
+#: (its float32 LML lies 61 from float64 there).
 MESH_START = (2.0, 1.0, 0.05)
 MESH_KINDS = ('first_order', 'total')
 #: The parts of an LML evaluation that phase 13 holds apart: the value, dls
 #: (its largest entry), ds2 and dnoise.
 MESH_PARTS = ('LML', 'dls', 'ds2', 'dnoise')
-#: Each engine's float32 LML evaluation against float64 ExactLML at the
-#: optimum, part by part: within these multiples of ExactLML float32's own
-#: distance from float64 ExactLML there. Set from the H100's readings
-#: (PERF.md): the engines read at most 1.18, 1.08, 36.9 and 0.95 times it;
-#: their float32 ds2 is the least accurate, since K^-1, formed blockwise,
-#: carries more rounding than cholesky_inverse's into sum(Bbar o Knn).
-MESH_F32_MULTIPLES = (4.0, 4.0, 100.0, 4.0)
+#: Each engine's float32 LML evaluation on one rank (13a) against float64
+#: ExactLML at NORTH_STAR_UPPER_OPTIMUM, part by part: within these
+#: multiples of ExactLML float32's own distance from float64 ExactLML there.
+#: One rank factorizes its float32 gram in float64 (MeshLML): about three
+#: times the H100's readings there, at most 0.0042, 0.0092, 0.126 and
+#: 0.0044 (PERF.md), so that a return to float32 factoring (read at 1.18,
+#: 1.08, 36.9, 0.95 times) fails.
+MESH_F32_MULTIPLES = (0.015, 0.03, 0.4, 0.015)
+#: The same over several ranks (13b), which keep romcomma_tpu's float32
+#: arithmetic: the limits set from one rank's readings in float32 (1.18,
+#: 1.08, 36.9, 0.95; PERF.md); their float32 ds2 is the least accurate, since
+#: K^-1, formed blockwise, carries more rounding than cholesky_inverse's
+#: into sum(Bbar o Knn).
+MESH_RANKS_F32_MULTIPLES = (4.0, 4.0, 100.0, 4.0)
 #: Each engine's float64 LML evaluation against float64 ExactLML at the
 #: optimum: within this share of ExactLML float32's distance, part by part
 #: (float64 rounds 2^-29 ~ 1.9e-9 as finely as float32; read: <= 2.5e-9).
@@ -2585,7 +2854,8 @@ def _parts(values) -> str:
 
 
 def mesh_reference(torch, X, Y, Xs, hypers):
-    """Phase 13's one-device reference at phase 8a's optimum ``hypers``: the
+    """Phase 13's one-device reference, engine='upper', at ``hypers``
+    (NORTH_STAR_UPPER_OPTIMUM): the
     float32 ExactLML value and gradient (and its median ms), the float64 one
     on the same float32-rounded data, the float32 one's distance from it
     part by part and the float64 parts' sizes; the float32 LML at
@@ -2595,12 +2865,12 @@ def mesh_reference(torch, X, Y, Xs, hypers):
     import numpy as np
     from romcomma_tpu_torch.parallel.distributed import DistributedGP
     N_ = len(X)
-    one = DistributedGP(N_, CARD, dtype=np.float32)
+    one = DistributedGP(N_, CARD, dtype=np.float32, engine='upper')
     x, y = one.stage(X, Y)
     at32 = tuple(torch.tensor(h, dtype=torch.float32, device=CARD) for h in hypers)
     ref = {'f32': _value_and_grad(torch, one, x, y, at32),
            'ms': median_ms(torch, lambda: _value_and_grad(torch, one, x, y, at32))}
-    one64 = DistributedGP(N_, CARD, dtype=np.float64)
+    one64 = DistributedGP(N_, CARD, dtype=np.float64, engine='upper')
     x64, y64 = one64.stage(x, y)
     ref['f64'] = _value_and_grad(torch, one64, x64, y64, tuple(t.double() for t in at32))
     ref['apart'] = _apart(ref['f32'], ref['f64'])
@@ -2629,10 +2899,11 @@ def mesh_reference(torch, X, Y, Xs, hypers):
 
 def mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers, ref):
     """Phase 13a, one engine on the mesh: at MESH_START its float32 LML
-    against ExactLML's; at phase 8a's optimum ``hypers`` its ring gram
+    against ExactLML's; at ``hypers`` (NORTH_STAR_UPPER_OPTIMUM) its ring gram
     against the one-device gram, its float32 and float64 LML and gradient
     against float64 ExactLML's, its float64 posterior, predictions and
-    indices against the one-device route's; its factor and value+grad timed;
+    indices against engine='upper''s; the same engine on the card with no
+    process group, its LML and gradient bit for bit; its factor and value+grad timed;
     then its calibrate from MESH_START counted. Returns the engine's record."""
     import numpy as np
     from romcomma_tpu_torch.ops.gram import rbf_gram
@@ -2656,8 +2927,16 @@ def mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers, ref):
         start_err = abs(gp.lml(*ref['start'], x, y).item() - ref['start f32'])
     start_bound = 10 * N_ * EPS['float32'] * (MESH_START[1] / MESH_START[2] + 1.0)
     require(start_err <= start_bound, (engine, 'LML at the start', start_err, start_bound))
-    factor_ms = median_ms(torch, lambda: gp._ops.chol(gp._ops.gram(x, *at32)))
+    # One rank factorizes the float64 gram (MeshLML).
+    factor_ms = median_ms(torch, lambda: gp._ops.chol(gp._ops.gram(x, *at32, torch.float64)))
     got = _value_and_grad(torch, gp, x, y, at32)
+    # The same engine on the card with no process group (S = 1, the ring's
+    # collectives the identity): the same bits as on the one-rank group.
+    solo = DistributedGP(N_, CARD, dtype=np.float32, engine=engine)
+    solo_bits = all(bool(torch.equal(a, b)) for a, b in zip(
+        _value_and_grad(torch, solo, *solo.stage(X, Y), at32), got))
+    require(solo_bits, (engine, 'on one device against one NCCL rank'))
+    del solo
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2711,9 +2990,10 @@ def mesh_engine(torch, gram_kernels, engine, mesh, X, Y, Xs, hypers, ref):
     print(f'{engine} on an NCCL mesh of 1 rank (plan: Npad {gp.plan.Npad}, B {gp.plan.B}'
           + (f', q {gp._ops.q}' if engine == 'cyclic2' else '') + f'): ring gram against the '
           f'one-device gram max |diff| {gram_err:.3e} (tol {VALUE_TOL * s2:.3e}), padding exact; '
+          f'on the card with no process group the same LML and gradient bits; '
           f'at the start, LML |diff| to ExactLML float32\'s {start_err:.3e} (phase 4 bound '
           f'{start_bound:.3e}); at the optimum LML {got[0].item():.6f} (ExactLML float32 '
-          f'{ref["f32"][0].item():.6f}, float64 {ref["f64"][0].item():.6f}); float64 posterior against the one-device route '
+          f'{ref["f32"][0].item():.6f}, float64 {ref["f64"][0].item():.6f}); float64 posterior against engine=\'upper\' '
           f'(limit {CARD_CPU_TOL}): ' + ', '.join(f'{k} {v:.2e}' for k, v in posterior_err.items())
           + f'; indices ({gsa_s:.2f} s; S and T squared, limit {ULP_SPREADS} one-ulp '
           f'spreads): ' + ', '.join(readings), flush=True)
@@ -2915,11 +3195,11 @@ def mesh_phase(torch, gram_kernels, repo):
     N_, M_ = NORTH_STAR[:2]
     X, Y = north_star.problem(N_, M_)
     Xs = np.random.default_rng(SEED).standard_normal((256, M_))
-    hypers = MAIN_PATH['north_star_hypers']
+    hypers = upper_hypers()
     tiles = check_mesh_tiles(torch, gram_kernels)
     t0 = time.perf_counter()
     ref = mesh_reference(torch, X, Y, Xs, hypers)
-    print(f'one-device reference at N={N_}: ExactLML float32 value+grad {ref["ms"]:.2f} ms '
+    print(f'one-device reference (engine=\'upper\') at N={N_}: ExactLML float32 value+grad {ref["ms"]:.2f} ms '
           f'(median of {MESH_TIMED}), LML {ref["f32"][0].item():.6f} (float64 '
           f'{ref["f64"][0].item():.6f}); at the optimum float32 against float64 '
           f'{_parts(ref["apart"])}, float64 sizes {_parts(ref["size"])}; indices\' one-ulp '
@@ -2989,7 +3269,7 @@ def mesh_ranks(S, size, hypers, point, backend, timeout):
 def mesh_ranks_phase(torch, ref, hypers, point, covariant_ref):
     """Phase 13b: where the machine has several cards, both engines and the
     covariant mesh on S = min(MESH_RANKS, cards) NCCL ranks, spawned, at
-    phase 8a's optimum ``hypers`` and 13c's ``point``: every rank's LMLs and
+    NORTH_STAR_UPPER_OPTIMUM ``hypers`` and 13c's ``point``: every rank's LMLs and
     gradients the same bits, held to float64 ExactLML's and
     CovariantUpperLML's as in 13a and 13c."""
     count = torch.cuda.device_count()
@@ -3003,7 +3283,7 @@ def mesh_ranks_phase(torch, ref, hypers, point, covariant_ref):
         apart = _apart([torch.as_tensor(g, device=CARD) for g in results[0][engine]],
                        ref['f64'])
         multiples = [a / r for a, r in zip(apart, ref['apart'])]
-        require(all(m <= limit for m, limit in zip(multiples, MESH_F32_MULTIPLES)),
+        require(all(m <= limit for m, limit in zip(multiples, MESH_RANKS_F32_MULTIPLES)),
                 (engine, S, apart, ref['apart']))
         print(f'{engine} on {S} NCCL ranks: every rank the same bits; against float64 ExactLML '
               f'{_parts(apart)}, i.e. ' + ', '.join(f'{m:.3g}' for m in multiples) + ' times '
@@ -3077,14 +3357,17 @@ def main() -> int:
           f'limit {gradient_worst:.3e}', flush=True)
 
     t = phase(f'8. the large-N variant route: the north star N={NORTH_STAR[0]} M={NORTH_STAR[1]}; '
-              f'run.gpr N={LARGE_N} M={M} K={LARGE_K}; DistributedGP card against the CPU')
+              f'run.gpr N={LARGE_N} M={M} K={LARGE_K}; DistributedGP card against the CPU; the '
+              f'north star N={NORTH_STAR_LARGE[0]} M={NORTH_STAR_LARGE[1]}')
     north_star_launches = north_star_phase(torch, gram_kernels)
     large_launches, large_seconds, large_worst, exact_worst = large_route_phase(
         torch, user, gram_kernels)
     distributed_card_against_cpu(torch)
-    print(f'phase 8: {time.perf_counter() - t:.2f} s (run.gpr N={LARGE_N} {large_seconds:.2f} s); '
-          f'worst LML error / bound {large_worst:.3e}; worst ExactLML error / limit '
-          f'{exact_worst:.3e}', flush=True)
+    t_large = time.perf_counter()
+    large_star_launches, strip_err = north_star_large_phase(torch, gram_kernels)
+    print(f'phase 8: {time.perf_counter() - t:.2f} s (run.gpr N={LARGE_N} {large_seconds:.2f} s; '
+          f'8d {time.perf_counter() - t_large:.2f} s); worst LML error / bound {large_worst:.3e}; '
+          f'worst ExactLML error / limit {exact_worst:.3e}', flush=True)
 
     t = phase(f'9. ROM: the N={ROM_N} M={ROM_M} planted plane, \'sobol\' for '
               f'{ROM_SOBOL_ITERATIONS} iterations and \'active_subspace\' for '
@@ -3119,7 +3402,7 @@ def main() -> int:
               f'several ranks where there are cards')
     mesh_launches, mesh_tiles, mesh_ref, point, covariant_ref = mesh_phase(torch, gram_kernels,
                                                                            repo)
-    mesh_ranks_phase(torch, mesh_ref, MAIN_PATH['north_star_hypers'], point, covariant_ref)
+    mesh_ranks_phase(torch, mesh_ref, upper_hypers(), point, covariant_ref)
     print(f'phase 13: {time.perf_counter() - t:.2f} s', flush=True)
 
     kernel_ms, plain_ms, bound_ms, bound_by = times[(8192, 8192, 30)]
@@ -3130,9 +3413,9 @@ def main() -> int:
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
         'launches': (launches + covariant_launches + north_star_launches + large_launches
-                     + sobol_launches + active_launches + csv_launches + sweep_launches
-                     + mesh_launches),
-        'max_abs_err': max(max_err, *(tile[4] for tile in mesh_tiles.values())),
+                     + large_star_launches + sobol_launches + active_launches + csv_launches
+                     + sweep_launches + mesh_launches),
+        'max_abs_err': max(max_err, strip_err, *(tile[4] for tile in mesh_tiles.values())),
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}, {
         'name': 'unit_gram (batched launch)', 'route': 'cuda',

@@ -896,7 +896,15 @@ def marginalize_intervals_folds(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[
             else:
                 results.append(ClosedSobol.marginalize_intervals(c, slices))
         return results
-    if not isinstance(cal, ClosedSobolWithError):
+    return _marginalize_canonical(cals, slices, specs, factorized_errors.intervals_folds)
+
+
+def _marginalize_canonical(cals, slices, specs, intervals) -> 'List[Dict[str, torch.Tensor]]':
+    """The stacked pass of :func:`marginalize_intervals_folds` over canonical
+    ``slices`` (classified as ``specs``): one V pass, then, for calibrators
+    with errors, one W/T sweep by ``intervals`` (``factorized_errors``'
+    ``intervals_folds`` or ``intervals_stacked``)."""
+    if not isinstance(cals[0], ClosedSobolWithError):
         return [{'V': V, 'S': V / c.V[2][..., None]}
                 for c, V in zip(cals, _intervals_pass(cals, slices))]
     t0 = time.perf_counter()
@@ -904,7 +912,7 @@ def marginalize_intervals_folds(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[
     _synchronize(Vs[0])
     v_pass_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    errors = factorized_errors.intervals_folds(cals, slices, specs, Vs)
+    errors = intervals(cals, slices, specs, Vs)
     _synchronize(Vs[0])
     wt_sweep_s = time.perf_counter() - t0
     results = []
@@ -916,6 +924,51 @@ def marginalize_intervals_folds(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[
         c.last_interval_timings = timings
         results.append({'V': V, 'S': V / c.V[2][..., None]} | error)
     return results
+
+
+def _stacked_specs(cals, slices) -> list:
+    """The classified ``slices`` of an output-stacked pass, which takes only
+    canonical slices and calibrators of one shape and dtype (romcomma_tpu's
+    rules, ``calibrators.py:748-758``)."""
+    first = cals[0]
+    specs = [first._classify_interval(m, first.M) for m in slices]
+    if any(k == 'general' for k, _ in specs):
+        raise ValueError(f'stacked interval passes support only canonical interval slices; got '
+                         f'{tuple(slices)}.')
+    for c in cals:
+        if c.G.shape != first.G.shape or c.G.dtype != first.G.dtype or type(c) is not type(first):
+            raise ValueError('stacked outputs must share their class, (l, L, N, M) and dtype.')
+    return specs
+
+
+def marginalize_intervals_stacked(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[int, int], ...]'
+                                  ) -> 'List[Dict[str, torch.Tensor]]':
+    """ONE factorized interval pass for several independent single-output
+    calibrators sharing X, the outputs of one large-route model (romcomma_tpu's,
+    ``calibrators.py:732``): each q chunk's step runs once for them all, as
+    the folds' pass does (:func:`_intervals_pass`, whose automatic chunk
+    shrinks by their number). Canonical slices only. Returns one {'V'} per
+    calibrator (slice axis last), what each one's ``marginalize_intervals``
+    gives up to the order of additions."""
+    slices = tuple(slices)
+    _stacked_specs(cals, slices)
+    return [{'V': V} for V in _intervals_pass(cals, slices)]
+
+
+def marginalize_intervals_error_stacked(cals: 'List[ClosedSobolWithError]',
+                                        slices: 'Tuple[Tuple[int, int], ...]'
+                                        ) -> 'List[Dict[str, torch.Tensor]]':
+    """Multi-output ``ClosedSobolWithError.marginalize_intervals``
+    (romcomma_tpu's, ``calibrators.py:1168``): ONE stacked V pass and ONE
+    stacked W/T sweep (``factorized_errors.intervals_stacked``) for
+    independent single-output calibrators sharing X, each output's psi
+    factors then solved against its own K_cho or half solver. Canonical
+    slices only. Returns one {'V', 'S', 'W', 'T'} per calibrator and records
+    the pass's ``last_interval_timings`` in each."""
+    from romcomma_tpu_torch.gsa import factorized_errors
+    slices = tuple(slices)
+    return _marginalize_canonical(cals, slices, _stacked_specs(cals, slices),
+                                  factorized_errors.intervals_stacked)
 
 
 def marginalize_all(gp, slices: Tuple[Tuple[int, int], ...], is_error_calculated: bool, **meta):

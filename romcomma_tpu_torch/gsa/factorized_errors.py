@@ -377,6 +377,25 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
     return sweeps
 
 
+def error_scan_stacked(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, Any]]:
+    """ONE factorized error sweep for several independent single-output
+    calibrators sharing X, the outputs of one large-route model
+    (romcomma_tpu's ``error_scan_stacked``, ``factorized_errors.py:450``):
+    each chunk step runs once for them all. Their group sweep is
+    :func:`error_scan_folds`, the port's ``_error_scan_group`` (``:462``),
+    which the folds' pass runs too; this adds romcomma_tpu's rules for
+    outputs: L = 1 each, one (N, M), dtype and T mode. Returns one
+    :func:`error_scan` result per calibrator."""
+    first = cals[0]
+    for c in cals:
+        if c.G.shape[0] != 1 or c.G.shape != first.G.shape or c.G.dtype != first.G.dtype:
+            raise ValueError('stacked error sweeps take single-output calibrators of one '
+                             '(N, M) and dtype.')
+        if bool(c.meta['is_T_partial']) != bool(first.meta['is_T_partial']):
+            raise ValueError('stacked error sweeps take calibrators of one is_T_partial.')
+    return error_scan_folds(cals, need)
+
+
 def _psi_solve(K_cho, factor: torch.Tensor) -> torch.Tensor:
     """tri_solve(K_cho, factor (M, l, i, N)) with K_cho's batch axis aligned
     with ``i`` (reference _psi_contract), as ONE multi-RHS solve per K_cho[i].
@@ -477,6 +496,17 @@ def intervals_folds(cals: Sequence, slices, kinds_idx, V_cols: Sequence) -> List
     need = _need_of(cals[0], kinds_idx)
     return [_assemble(cal, sweep, need, kinds_idx, V)
             for cal, sweep, V in zip(cals, error_scan_folds(cals, need), V_cols)]
+
+
+def intervals_stacked(cals: Sequence, slices, kinds_idx, V_cols_list: Sequence) -> List[Dict]:
+    """Multi-output :func:`intervals` (romcomma_tpu's, ``factorized_errors.py:800``):
+    ONE stacked error sweep (:func:`error_scan_stacked`) for independent
+    single-output calibrators sharing X, then each output's W/T assembly.
+    ``V_cols_list`` holds each one's base-pass V columns, aligned with
+    ``slices``. Returns one {'W', 'T'} per calibrator."""
+    need = _need_of(cals[0], kinds_idx)
+    return [_assemble(cal, sweep, need, kinds_idx, V)
+            for cal, sweep, V in zip(cals, error_scan_stacked(cals, need), V_cols_list)]
 
 
 def _need_of(cal, kinds_idx) -> Dict[str, bool]:

@@ -552,7 +552,8 @@ class MOGP(GPR):
         joint descents through parallel.distributed.DistributedGP on
         ``make_n_mesh()`` with ``dense_kernels=True``, as romcomma_tpu builds
         it (under a process group of several ranks, the 'cyclic2' engine over
-        them, every rank in lockstep; else one device), from the
+        them, every rank in lockstep; on one device 'cyclic2' from
+        ``DistributedGP.CYCLIC2_SINGLE_CHIP_MIN_N`` rows, 'upper' below), from the
         kernel's variance, its lengthscales broadcast to (L, M) and the
         likelihood's variance. The joint descent runs when L > 1 and
         ``fits_multi(L)``. A descent that ends on a non-finite LML in the
@@ -586,8 +587,10 @@ class MOGP(GPR):
                 # N the working dtype's rounding can swamp the small pivots
                 # whatever the start. Rerun the whole descent in float64.
                 if dgp64 is None:
-                    dgp64 = DistributedGP(self._N, mesh, block=block, dtype=np.float64,
-                                          dense_kernels=True)
+                    # romcomma_tpu's rescue engine (gpr.py:607): without
+                    # dense_kernels, so on one device 'cyclic', whose descent
+                    # is the dense direct one up to DENSE_DIRECT_MAX_N rows.
+                    dgp64 = DistributedGP(self._N, mesh, block=block, dtype=np.float64)
                 result = dgp64.calibrate(
                     self._X.astype(np.float64), self._Y[:, l:l + 1].astype(np.float64), *start,
                     maxiter=maxiter, gtol=gtol, mask=mask3, max_linesearch_steps=4)

@@ -41,7 +41,7 @@ import torch
 
 from romcomma_tpu_torch.ops.gram import rbf_gram
 from romcomma_tpu_torch.ops.linalg import cholesky as dense_cholesky
-from romcomma_tpu_torch.parallel.distributed import Plan, Ring
+from romcomma_tpu_torch.parallel.distributed import Plan, Ring, ring_tile
 
 
 def super_q(pl_: Plan, target: int) -> int:
@@ -90,24 +90,32 @@ def _keep_mine(ring: Ring, panel: torch.Tensor, q_s: int, B: int) -> torch.Tenso
 def ring_gram_global(pl_: Plan, mesh):
     """Noisy gram, rows block-cyclic (stored order), columns GLOBAL order.
 
-    fn(x_stored (Npad, M), the same on every rank, ls, s2, noise) -> this
-    rank's rows (c B, Npad). Padding rows and columns (global index >= N)
-    carry a unit diagonal and zeros off it."""
+    fn(x_stored (Npad, M), the same on every rank, ls, s2, noise,
+    dtype=None) -> this rank's rows (c B, Npad) in ``dtype`` (x_stored's by
+    default; the tiles in x_stored's, the noise added in ``dtype``). Padding
+    rows and columns (global index >= N) carry a unit diagonal and zeros
+    off it."""
     ring = Ring(mesh)
     S, B, c, Npad, N = pl_.S, pl_.B, pl_.c, pl_.Npad, pl_.N
     cB = c * B
 
-    def build(x_stored, ls, s2, noise):
+    def build(x_stored, ls, s2, noise, dtype=None):
         me = ring.me
         x_local = x_stored[me * cB:(me + 1) * cB].contiguous()
-        out = torch.empty((cB, c, S, B), dtype=x_stored.dtype, device=x_stored.device)
-        buf = x_local
-        for s in range(S):
-            src = (me - s) % S
-            # buf's stored rows (ci, b) of rank src are global columns of block ci S + src
-            out[:, :, src, :] = rbf_gram(x_local, buf, ls, s2).view(cB, c, B)
-            if s + 1 < S:
-                buf = ring.shift(buf)
+        if S == 1:
+            # One rank: stored order is global order, and the one tile is the
+            # whole gram (no second (Npad, Npad) buffer).
+            out = ring_tile(x_local, x_local, ls, s2, dtype)
+        else:
+            out = torch.empty((cB, c, S, B), dtype=dtype or x_stored.dtype,
+                              device=x_stored.device)
+            buf = x_local
+            for s in range(S):
+                src = (me - s) % S
+                # buf's stored rows (ci, b) of rank src are global columns of block ci S + src
+                out[:, :, src, :] = ring_tile(x_local, buf, ls, s2).view(cB, c, B)
+                if s + 1 < S:
+                    buf = ring.shift(buf)
         out = out.view(cB, Npad)
         g_rows = _local_global_rows(pl_, me, out.device)
         row_real = (g_rows < N).to(out.dtype)
@@ -265,7 +273,9 @@ def grads_ring_pairs(pl_: Plan, mesh, super_block: int = 3584):
     off-diagonal ones at weight 2; offsets 1..ceil(S/2)-1 carry each
     unordered rank pair once at weight 2; for even S the antipodal offset
     S/2 is taken by both ends at weight 1. The tail chunk is clamped to the
-    slab's end and its overlap with the chunk before it masked to zero."""
+    slab's end and its overlap with the chunk before it masked to zero. The
+    gram tiles are built in x's dtype (float32 on a card: the kernel) and the
+    rest in V's, which may be wider."""
     ring = Ring(mesh)
     S, B, c, Npad, N = pl_.S, pl_.B, pl_.c, pl_.Npad, pl_.N
     cB = c * B
@@ -299,7 +309,8 @@ def grads_ring_pairs(pl_: Plan, mesh, super_block: int = 3584):
             kinv = Vr[:, start:] @ Vc[:, start:].T
             mask2 = mr[:, None] * mc[None, :]
             Bbar = 0.5 * (ar[:, None] * ac[None, :] - kinv) * mask2
-            W = Bbar * (rbf_gram(xr, xc, ls, s2) * mask2)
+            W = Bbar * (rbf_gram(xr, xc, ls, s2).to(dt) * mask2)
+            xr, xc = xr.to(dt), xc.to(dt)           # the reductions in V's dtype
             acc[M] += weight * torch.sum(W)
             if src == me:                                # true diagonal entries
                 acc[M + 1] += torch.sum(Bbar * (gr[:, None] == gc[None, :]))

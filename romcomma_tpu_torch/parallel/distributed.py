@@ -2,11 +2,14 @@
 over the ranks of a torch.distributed mesh.
 
 Counterpart of ``romcomma_tpu/parallel/distributed.py``. ``DistributedGP``
-takes one of two routes.
+runs one of romcomma_tpu's three engines, chosen as romcomma_tpu chooses
+(``DistributedGP.__init__``): with ``dense_kernels`` (the large route's
+production choice) 'cyclic2' on a mesh of several ranks and on one device
+from N = ``CYCLIC2_SINGLE_CHIP_MIN_N``, 'upper' on one device below it;
+without, 'cyclic'.
 
-One device (a device, or a mesh of one rank, with no ``engine``): on one
-card with native float64 and 80 GB, romcomma_tpu's single-device results
-come from cuSOLVER and cuBLAS directly:
+'upper' (one device): on one card with native float64 and 80 GB,
+romcomma_tpu's single-device results come from cuSOLVER and cuBLAS directly:
 
   - ``lml``: ``models.gp.ExactLML``, the exact log marginal likelihood with
     the analytic backward of romcomma_tpu's custom VJP, which the small
@@ -18,28 +21,34 @@ come from cuSOLVER and cuBLAS directly:
     Cholesky of the noisy gram, in the original row order. romcomma_tpu's
     factor ladder and iterative refinement repair a float32 factor; a
     float64 factor has nothing left to repair.
-  - ``sobol_indices``: per output, one ``ClosedSobol`` (or
-    ``ClosedSobolWithError``) calibrator from the float64 posterior, with
-    every slice of every kind in one factorized interval pass.
+  - ``sobol_indices``: one ``ClosedSobol`` (or ``ClosedSobolWithError``)
+    calibrator per output from the float64 posterior, with every slice of
+    every kind in one factorized interval pass, several outputs stacked in
+    one pass.
   - ``calibrate``, ``calibrate_multi``: scipy L-BFGS-B over the eager
     value and gradient, in the working dtype.
 
-A mesh (the ('n',) ``DeviceMesh`` that ``make_n_mesh()`` returns under a
-process group; S ranks, one device each): romcomma_tpu's single-controller
-``shard_map`` programs run SPMD, one rank per device, each rank holding the
-(c B, Npad) row slab of every (Npad, Npad) object. Its ``ppermute`` ring
-becomes ``batch_isend_irecv`` to the ranks on either side, ``psum``
-``all_reduce`` and ``all_gather`` ``all_gather``; NCCL on cards, gloo on the
-CPU. Two engines, as in romcomma_tpu:
+'cyclic' and 'cyclic2' run over the ranks of an ('n',) ``DeviceMesh``
+(``make_n_mesh()`` under a process group; S ranks, one device each), or on
+one device with no process group, where S = 1 and every collective of
+``Ring`` is the identity, as on romcomma_tpu's one-device mesh.
+romcomma_tpu's single-controller ``shard_map`` programs run SPMD, one rank
+per device, each rank holding the (c B, Npad) row slab of every (Npad,
+Npad) object. Its ``ppermute`` ring becomes ``batch_isend_irecv`` to the
+ranks on either side, ``psum`` ``all_reduce`` and ``all_gather``
+``all_gather``; NCCL on cards, gloo on the CPU:
 
-  - 'cyclic' (``dense_kernels=False``): ``ring_gram``, the right-looking
-    block-cyclic ``cholesky`` (the panel all-gathered, the trailing update
-    local), ``solve_forward``, ``solve_backward``, ``log_diag_sum``; the
-    backward builds K^-1 slab by slab from substitution sweeps and reduces
-    the gradient from the slabs (``grads_stored``).
-  - 'cyclic2' (``dense_kernels=True``): ``parallel.cyclic_deferred``, the
-    left-looking super-panel factorization in global column order, its
-    in-place triangular inverse and the half-ring pair-tile gradient.
+  - 'cyclic': ``ring_gram``, the right-looking block-cyclic ``cholesky``
+    (the panel all-gathered, the trailing update local), ``solve_forward``,
+    ``solve_backward``, ``log_diag_sum``; the backward builds K^-1 slab by
+    slab from substitution sweeps and reduces the gradient from the slabs
+    (``grads_stored``). On one device of at most ``DENSE_DIRECT_MAX_N`` rows
+    it calibrates through ``ExactLML``, romcomma_tpu's dense direct descent.
+  - 'cyclic2': ``parallel.cyclic_deferred``, the left-looking super-panel
+    factorization in global column order, its in-place triangular inverse
+    and the half-ring pair-tile gradient: one (Npad, Npad) buffer in the
+    factor's dtype (float64 on one device, the bytes of two float32
+    buffers; see ``MeshLML``), where 'upper' holds three float32 ones.
 
 Every tile of a ring gram goes through ``ops.gram.rbf_gram``, so a float32
 tile on a card is one launch of the unit-gram kernel with two operands.
@@ -76,7 +85,7 @@ from romcomma_tpu_torch.base.definitions import (FLOAT, device as compute_device
 from romcomma_tpu_torch.models.gp import ExactLML
 from romcomma_tpu_torch.models.params import NOISE_LOWER_BOUND
 from romcomma_tpu_torch.ops import lbfgs
-from romcomma_tpu_torch.ops.gram import rbf_gram
+from romcomma_tpu_torch.ops.gram import _use_kernel, rbf_gram
 from romcomma_tpu_torch.ops.linalg import cho_solve, cholesky as dense_cholesky, tri_solve
 from romcomma_tpu_torch.ops.transforms import positive, positive_inverse
 
@@ -203,26 +212,38 @@ def _from_stored_t(pl_: Plan, a: torch.Tensor) -> torch.Tensor:
 
 class Ring:
     """This rank's place in an ('n',) mesh and the engines' collectives:
-    romcomma_tpu's ppermute ring, psum and all_gather."""
+    romcomma_tpu's ppermute ring, psum and all_gather. On one device (a
+    device, no process group) S = 1, me = 0 and every collective is the
+    identity, as romcomma_tpu's are on a one-device mesh; each returns what
+    the one-rank group returns (a contiguous tensor, a fresh stack from
+    ``gather``), so an engine on one device computes what it computes on a
+    one-rank group, bit for bit."""
 
     def __init__(self, mesh):
-        import torch.distributed as dist
         self.mesh = mesh
-        self.group = mesh.get_group()
-        self.S = mesh.size()
-        self.me = mesh.get_local_rank()
-        self.ranks = [dist.get_global_rank(self.group, i) for i in range(self.S)]
-        self.device = compute_device()
+        if _is_mesh(mesh):
+            import torch.distributed as dist
+            self.group = mesh.get_group()
+            self.S = mesh.size()
+            self.me = mesh.get_local_rank()
+            self.ranks = [dist.get_global_rank(self.group, i) for i in range(self.S)]
+            self.device = compute_device()
+        else:
+            self.group, self.S, self.me, self.ranks = None, 1, 0, [0]
+            self.device = _one_device(mesh)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks (in place where t is contiguous)."""
-        import torch.distributed as dist
         t = t.contiguous()
-        dist.all_reduce(t, group=self.group)
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.all_reduce(t, group=self.group)
         return t
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's t, stacked on a leading rank axis."""
+        if self.group is None:
+            return torch.stack([t])
         import torch.distributed as dist
         parts = [torch.empty_like(t) for _ in range(self.S)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
@@ -230,9 +251,10 @@ class Ring:
 
     def from_rank(self, t: torch.Tensor, rank: int) -> torch.Tensor:
         """Rank ``rank``'s t on every rank (in place where t is contiguous)."""
-        import torch.distributed as dist
         t = t.contiguous()
-        dist.broadcast(t, src=self.ranks[rank], group=self.group)
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.broadcast(t, src=self.ranks[rank], group=self.group)
         return t
 
     def agree(self, t: torch.Tensor) -> torch.Tensor:
@@ -243,9 +265,9 @@ class Ring:
     def shift(self, t: torch.Tensor) -> torch.Tensor:
         """One step of the ring: t goes to the next rank, and the previous
         rank's comes back."""
-        import torch.distributed as dist
         if self.S == 1:
             return t
+        import torch.distributed as dist
         t, out = t.contiguous(), torch.empty_like(t)
         ops = [dist.P2POp(dist.isend, t, self.ranks[(self.me + 1) % self.S], self.group),
                dist.P2POp(dist.irecv, out, self.ranks[(self.me - 1) % self.S], self.group)]
@@ -263,26 +285,55 @@ def _real_mask(pl_: Plan, dtype, device) -> torch.Tensor:
 # The 'cyclic' engine: ring gram, block-cyclic Cholesky, solves
 # --------------------------------------------------------------------------- #
 
+#: Rows of a ring tile built at once where it is not one launch: the plain
+#: gram holds a few temporaries of its own size, which a whole (Npad, Npad)
+#: float64 tile at N = 50000 (20 GB each) cannot afford, and a float32 tile
+#: kept in float64 is launched strip by strip so that no whole float32 copy
+#: lives beside it.
+TILE_STRIP_ROWS = 4096
+
+
+def ring_tile(u: torch.Tensor, v: torch.Tensor, ls, s2, dtype=None) -> torch.Tensor:
+    """One tile of a ring gram, ``rbf_gram(u, v, ls, s2)``, in ``dtype``
+    (u's by default): one launch of the unit-gram kernel where the inputs
+    are float32 on a card and the tile stays float32 (one operand packed
+    when u is v), else strips of TILE_STRIP_ROWS rows written into the tile,
+    each one launch of the kernel (two operands) or the plain gram."""
+    dtype = u.dtype if dtype is None else dtype
+    if dtype == u.dtype and (_use_kernel(u, v, ls, s2) or u.shape[0] <= TILE_STRIP_ROWS):
+        return rbf_gram(u, v, ls, s2)
+    out = torch.empty((u.shape[0], v.shape[0]), dtype=dtype, device=u.device)
+    for r0 in range(0, u.shape[0], TILE_STRIP_ROWS):
+        out[r0:r0 + TILE_STRIP_ROWS] = rbf_gram(u[r0:r0 + TILE_STRIP_ROWS], v, ls, s2)
+    return out
+
+
 def ring_gram(pl_: Plan, mesh):
     """The noisy stored-order gram, rows on their ranks.
 
     Returns fn(x_stored (Npad, M), the same on every rank, ls (M,), s2,
-    noise) -> this rank's K rows (c B, Npad). X row blocks rotate around the
-    ring; each tile is one ``rbf_gram`` of the rank's rows against the
-    rotating block. Padding rows get a unit diagonal and zero off it."""
+    noise, dtype=None) -> this rank's K rows (c B, Npad) in ``dtype``
+    (x_stored's by default; the tiles in x_stored's, the noise added in
+    ``dtype``). X row blocks rotate around the ring; each tile is one
+    ``rbf_gram`` of the rank's rows against the rotating block. On one rank
+    the one tile is the whole gram (``ring_tile``, no copy). Padding rows
+    get a unit diagonal and zero off it."""
     ring = Ring(mesh)
     S, cB, Npad = pl_.S, pl_.c * pl_.B, pl_.Npad
 
-    def build(x_stored, ls, s2, noise):
+    def build(x_stored, ls, s2, noise, dtype=None):
         me = ring.me
         x_local = x_stored[me * cB:(me + 1) * cB].contiguous()
-        out = torch.empty((cB, Npad), dtype=x_stored.dtype, device=x_stored.device)
-        buf = x_local
-        for s in range(S):
-            src = (me - s) % S                          # owner of buf's rows
-            out[:, src * cB:(src + 1) * cB] = rbf_gram(x_local, buf, ls, s2)
-            if s + 1 < S:
-                buf = ring.shift(buf)
+        if S == 1:
+            out = ring_tile(x_local, x_local, ls, s2, dtype)
+        else:
+            out = torch.empty((cB, Npad), dtype=dtype or x_stored.dtype, device=x_stored.device)
+            buf = x_local
+            for s in range(S):
+                src = (me - s) % S                      # owner of buf's rows
+                out[:, src * cB:(src + 1) * cB] = ring_tile(x_local, buf, ls, s2)
+                if s + 1 < S:
+                    buf = ring.shift(buf)
         real = _real_mask(pl_, out.dtype, out.device)
         row_real = real[me * cB:(me + 1) * cB]
         out.mul_(row_real[:, None]).mul_(real[None, :])
@@ -443,6 +494,7 @@ def grads_stored(pl_: Plan, mesh):
 
     def grads(K_local, Kinv_local, alpha, x, ls, s2, noise):
         rows0 = ring.me * cB
+        x = x.to(Kinv_local.dtype)                   # the reductions in K^-1's dtype
         real = _real_mask(pl_, K_local.dtype, K_local.device)
         row_real = real[rows0:rows0 + cB]
         rows = torch.arange(cB, device=K_local.device)
@@ -517,31 +569,56 @@ class MeshLML(torch.autograd.Function):
     backward of romcomma_tpu's ``_build_lml`` custom VJP. The value and the
     gradient are rank 0's on every rank. Forward inputs: ls (M,), s2 and
     noise scalars, x_stored (Npad, M) and y (Npad, 1) in stored order, the
-    same on every rank, and the engine."""
+    same on every rank, and the engine.
+
+    On one device or one rank (S = 1) the LML is computed in float64
+    whatever the engine's dtype: a float32 engine's gram is built through
+    the unit-gram kernel in float32 strips written into one float64
+    (Npad, Npad) buffer (``ring_tile``), the noise added there, and the
+    factor, solves, in-place inverse and reductions are float64; the value
+    is returned in float64, the precision it is computed in, and the
+    gradient in the engine's dtype. A float32 descent needs it: in float32
+    the north star's descent on 'cyclic2' at N=20000 ends with S1 0.012 from
+    the problem's (PERF.md), since a value rounded to float32 moves in steps
+    of 0.002 at |LML| ~ 2e4, where scipy's relative-reduction rule (2.2e-9
+    |f| = 4e-5) then ends a descent at the first step that rounds to no
+    gain, and the float32 factor costs the gradient its digits. There
+    dLML/ds2 comes from Euler's identity: K = s2 E + noise I is homogeneous
+    of degree one in (s2, noise), so s2 dLML/ds2 + noise dLML/dnoise =
+    (y^T K^-1 y - N) / 2, the value's own quadratic term.
+
+    Over several ranks (S > 1) every step runs in the engine's dtype, as
+    romcomma_tpu's engines do (float32 products true float32), dLML/ds2 the
+    engine's reduction of sum(Bbar o Knn), and each rank holds its (c B,
+    Npad) slab in that dtype."""
 
     @staticmethod
     def forward(ctx, ls, s2, noise, x, y, engine):
         N = engine.plan.N
-        K = engine.gram(x, ls, s2, noise)
-        F = engine.chol(K)
-        z = engine.fwd(F, y)
+        F = engine.chol(engine.gram(x, ls, s2, noise,
+                                    torch.float64 if engine.plan.S == 1 else x.dtype))
+        z = engine.fwd(F, y.to(F.dtype))
         alpha = engine.bwd(F, z)
-        value = (-0.5 * torch.sum(z * z) - engine.logdiag(F)
-                 - 0.5 * N * math.log(2.0 * math.pi))
+        quad = torch.sum(z * z)
+        value = -0.5 * quad - engine.logdiag(F) - 0.5 * N * math.log(2.0 * math.pi)
         value = engine.ring.agree(torch.where(torch.isfinite(value), value, -torch.inf))
         ctx.engine = engine
-        ctx.save_for_backward(ls, s2, noise, x, engine.residual(F), alpha)
+        ctx.save_for_backward(ls, s2, noise, x, engine.residual(F), alpha, quad)
         return value
 
     @staticmethod
     def backward(ctx, gbar):
-        ls, s2, noise, x, R, alpha = ctx.saved_tensors
+        ls, s2, noise, x, R, alpha, quad = ctx.saved_tensors
+        plan = ctx.engine.plan
         dls, ds2, dnoise = ctx.engine.grads(R, alpha, x, ls, s2, noise)
-        packed = ctx.engine.ring.agree(torch.cat([dls.reshape(-1), ds2.reshape(1),
-                                                  dnoise.reshape(1)]))
+        if plan.S == 1:
+            ds2 = (0.5 * (quad - plan.N) - noise * dnoise) / s2
+        packed = gbar * ctx.engine.ring.agree(torch.cat([dls.reshape(-1), ds2.reshape(1),
+                                                         dnoise.reshape(1)]))
         M = dls.numel()
-        return (gbar * packed[:M].reshape(ls.shape), gbar * packed[M].reshape(s2.shape),
-                gbar * packed[M + 1].reshape(noise.shape), None, None, None)
+        return (packed[:M].reshape(ls.shape).to(ls.dtype),
+                packed[M].reshape(s2.shape).to(s2.dtype),
+                packed[M + 1].reshape(noise.shape).to(noise.dtype), None, None, None)
 
 
 def _one_device(mesh) -> torch.device:
@@ -573,6 +650,14 @@ class DistributedGP:
     MULTI_MEMORY_BUDGET_BYTES: int = 12 * 2 ** 30
     #: Super-panel rows of the 'cyclic2' engine (romcomma_tpu's DENSE_SUPER_BLOCK).
     DENSE_SUPER_BLOCK: int = 3584
+    #: N from which ``dense_kernels`` takes 'cyclic2' on one device too
+    #: (romcomma_tpu's, ``distributed.py:410``): one (Npad, Npad) buffer
+    #: (float64 on one device) and the pair-tile gradient, where 'upper'
+    #: holds three float32 ones.
+    CYCLIC2_SINGLE_CHIP_MIN_N: int = 16384
+    #: N up to which a one-device 'cyclic' engine calibrates through the dense
+    #: exact LML, romcomma_tpu's dense direct descent (``distributed.py:366``).
+    DENSE_DIRECT_MAX_N: int = 21000
 
     def __init__(self, N: int, mesh=None, block: int = 256, dtype=None,
                  dense_kernels: bool = False, engine: Optional[str] = None):
@@ -581,14 +666,21 @@ class DistributedGP:
         large route's rescue relies on it). ``mesh``: None (``make_n_mesh()``),
         a device, a sequence of one device, or an ('n',) ``DeviceMesh``.
 
-        The engine, as romcomma_tpu selects it: on a mesh of S > 1 ranks
-        'cyclic2' where ``dense_kernels``, else 'cyclic'; on one device, the
-        one-device route. ``engine`` overrides it: 'cyclic' or 'cyclic2' on a
-        mesh of any size, 'upper' (romcomma_tpu's single-device engine, here
-        the one-device route) on one device only. ``block`` is the mesh's
-        block size B; on one device it only sets ``fits_multi``'s padding."""
+        The engine (``self.engine``), as romcomma_tpu selects it
+        (``distributed.py:438-506``): with ``dense_kernels``, 'cyclic2' on a
+        mesh of S > 1 ranks and on one device from N =
+        CYCLIC2_SINGLE_CHIP_MIN_N, else 'upper'; without, 'cyclic'.
+        ``engine`` overrides it: 'cyclic' or 'cyclic2' on a mesh of any size
+        or on one device (their collectives then the identity), 'upper' on
+        one device only. 'upper' is the port's one-device route (ExactLML and
+        dense float64 posteriors, in the original row order); the other two
+        hold every (Npad, Npad) object in stored order. ``block`` is the
+        engines' block size B; for 'upper' it only sets ``fits_multi``'s
+        padding."""
         if mesh is None:
             mesh = make_n_mesh()
+        if not _is_mesh(mesh):
+            mesh = _one_device(mesh)
         S = mesh.size() if _is_mesh(mesh) else 1
         if engine not in (None, 'upper', 'cyclic', 'cyclic2'):
             raise ValueError(f"DistributedGP engine={engine!r}: one of 'upper', 'cyclic', "
@@ -596,20 +688,19 @@ class DistributedGP:
         if engine == 'upper' and S > 1:
             raise ValueError(f"engine='upper' is single-device only; this mesh has {S} devices "
                              f"- use engine='cyclic2'.")
-        self.engine = (engine if engine in ('cyclic', 'cyclic2') else
-                       None if S == 1 else 'cyclic2' if dense_kernels else 'cyclic')
+        if engine is None:
+            engine = ('cyclic' if not dense_kernels else
+                      'cyclic2' if S > 1 or N >= self.CYCLIC2_SINGLE_CHIP_MIN_N else 'upper')
+        self.engine, self.mesh = engine, mesh
         self.N, self.block = int(N), int(block)
         self.dtype = _torch_dtype(FLOAT() if dtype is None else dtype)
-        self.mesh = self.plan = self._ops = None
-        if self.engine is None:
-            self.device = compute_device() if _is_mesh(mesh) else _one_device(mesh)
-        elif not _is_mesh(mesh):
-            raise ValueError(f'DistributedGP engine={self.engine!r} runs over a mesh: '
-                             f'{MULTI_DEVICE_MESH}.')
+        if engine == 'upper':
+            self.plan = self._ops = None
+            self.device = compute_device() if _is_mesh(mesh) else mesh
         else:
             from romcomma_tpu_torch.parallel.cyclic_deferred import DeferredEngine
-            self.mesh, self.plan = mesh, plan(self.N, S, self.block)
-            self._ops = (CyclicEngine(self.plan, mesh) if self.engine == 'cyclic' else
+            self.plan = plan(self.N, S, self.block)
+            self._ops = (CyclicEngine(self.plan, mesh) if engine == 'cyclic' else
                          DeferredEngine(self.plan, mesh, self.DENSE_SUPER_BLOCK))
             self.device = self._ops.ring.device
         self._stage_token = 0
@@ -636,8 +727,8 @@ class DistributedGP:
 
     def stage(self, X, Y) -> Tuple[torch.Tensor, torch.Tensor]:
         """Host X (N, M) and Y (N,) | (N, L) as tensors on the device, in the
-        working dtype: in the original row order on one device, in stored
-        order (Npad rows, the same on every rank) on a mesh. Each call takes
+        working dtype: in the original row order on 'upper', in stored order
+        (Npad rows, the same on every rank) on the other engines. Each call takes
         a new stage token, which keys the posterior cache of
         ``sobol_indices``: a staged pair is recognised by identity while this
         engine holds it."""
@@ -663,8 +754,11 @@ class DistributedGP:
 
     def lml(self, ls, s2, noise, x_dev: torch.Tensor, y_dev: torch.Tensor) -> torch.Tensor:
         """The exact LML of one output (scalar), differentiable in ls, s2 and
-        noise, in x_dev's dtype; -inf where the factorization breaks down. On
-        a mesh, y_dev is one staged column (Npad, 1), and the value and its
+        noise; -inf where the factorization breaks down. On 'upper' in
+        x_dev's dtype; on 'cyclic' and 'cyclic2' on one device in float64,
+        the gradient in x_dev's dtype, and over several ranks in x_dev's
+        dtype (``MeshLML``).
+        There y_dev is one staged column (Npad, 1), and the value and its
         gradient are rank 0's on every rank."""
         ls, s2, noise = self._cast(x_dev, ls, s2, noise)
         if self.plan is None:
@@ -690,18 +784,19 @@ class DistributedGP:
 
     def _mesh_factor64(self, ls, s2, noise, x_dev: torch.Tensor) -> torch.Tensor:
         """This rank's rows of the float64 factor of the noisy gram, from the
-        mesh engine run on float64 inputs."""
+        engine run on float64 inputs: one (Npad, Npad) float64 buffer on one
+        device, the gram factorized in place."""
         x64 = x_dev.to(torch.float64)
         ls, s2, noise = (v.detach() for v in self._cast(x64, ls, s2, noise))
         return self._ops.chol(self._ops.gram(x64, ls, s2, noise))
 
     def posterior_alpha(self, ls, s2, noise, x_dev: torch.Tensor, y_dev: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(alpha = K^-1 y, its float64 Cholesky factor), float64. On one
-        device alpha is (N, R) for y_dev (N,) | (N, R), and the factor (N, N),
-        both in the original row order. On a mesh, as romcomma_tpu: alpha
-        (Npad, R) in stored order, the same on every rank, and this rank's
-        rows of the factor. romcomma_tpu's ``refine`` rounds repair a float32
+        """(alpha = K^-1 y, its float64 Cholesky factor), float64. On
+        'upper' alpha is (N, R) for y_dev (N,) | (N, R), and the factor (N, N),
+        both in the original row order. On 'cyclic' and 'cyclic2', as
+        romcomma_tpu: alpha (Npad, R) in stored order, the same on every rank,
+        and this rank's rows of the engine's float64 factor. romcomma_tpu's ``refine`` rounds repair a float32
         or bf16x3 factor against float64 residuals; a float64 factor leaves
         nothing to refine, so there is no such argument."""
         with torch.no_grad():
@@ -784,9 +879,11 @@ class DistributedGP:
         factorized pass. 'total' is 1 - S of the complement's slice. With
         ``error`` -> {'S': that structure, 'T': its standard errors, the same
         shape}; ``is_T_partial`` picks the reference's partial or total T.
-        ``ls`` (L, M) with s2 and noise (L,) and y_dev (N, L) -> a list, one
-        structure per output. ``X`` is the float64 input the calibrator sees
-        (the host data). ``n_chunk`` sets the calibrator's chunk.
+        ``ls`` (L, M) with s2 and noise (L,) and y_dev's L columns -> a list,
+        one structure per output, from ONE stacked pass over the outputs
+        (``_sobol_indices_multi``, ``_sobol_indices_multi_error``, as
+        romcomma_tpu routes them). ``X`` is the float64 input the calibrator
+        sees (the host data). ``n_chunk`` sets the calibrator's chunk.
 
         romcomma_tpu's TPU tiers are refused: ``gsa_dtype`` other than None or
         float64, ``intervals_mixed`` other than None or False, and
@@ -806,24 +903,143 @@ class DistributedGP:
         t0 = time.perf_counter()
         ls_arr = ls.detach().cpu().numpy() if torch.is_tensor(ls) else np.asarray(ls)
         args_fetch = time.perf_counter() - t0
-        options = dict(kind=kind, n_chunk=n_chunk, error=error, is_T_partial=is_T_partial)
+        options = dict(kind=kind, n_chunk=n_chunk, args_fetch=args_fetch)
         if ls_arr.ndim == 1:
-            return self._sobol_indices_one(ls_arr, s2, noise, x_dev, y_dev, X,
-                                           args_fetch=args_fetch, **options)
-        outputs = ls_arr.shape[0]
+            return self._sobol_indices_one(ls_arr, s2, noise, x_dev, y_dev, X, error=error,
+                                           is_T_partial=is_T_partial, **options)
         s2_arr, noise_arr = (np.reshape(v.detach().cpu().numpy() if torch.is_tensor(v) else v,
-                                        outputs) for v in (s2, noise))
-        results, timings = [], {}
-        for l in range(outputs):
-            results.append(self._sobol_indices_one(ls_arr[l], s2_arr[l], noise_arr[l], x_dev,
-                                                   y_dev[:, l:l + 1], X, args_fetch=args_fetch,
-                                                   **options))
-            for key in ('posterior_s', 'intervals_s', 'k_cho_s', 'total_s'):
-                timings[key] = timings.get(key, 0.0) + self.last_gsa_timings.get(key, 0.0)
-        self.last_gsa_timings = ({k: timings[k] for k in ('posterior_s', 'intervals_s')}
-                                 | {'args_fetch_s': args_fetch, 'outputs': outputs}
-                                 | ({'k_cho_s': timings['k_cho_s'], 'total_s': timings['total_s']}
-                                    if error else {}))
+                                        ls_arr.shape[0]) for v in (s2, noise))
+        if error:
+            return self._sobol_indices_multi_error(ls_arr, s2_arr, noise_arr, x_dev, y_dev, X,
+                                                   is_T_partial=is_T_partial, **options)
+        return self._sobol_indices_multi(ls_arr, s2_arr, noise_arr, x_dev, y_dev, X, **options)
+
+    def _alpha(self, ls, s2, noise, x_dev: torch.Tensor, y_dev: torch.Tensor, l: int
+               ) -> torch.Tensor:
+        """Output l's float64 K^-1 y in the original row order, (N, 1); its
+        factor is dropped here."""
+        alpha, _ = self.posterior_alpha(ls, s2, noise, x_dev, y_dev[:, l:l + 1])
+        return alpha if self.plan is None else _from_stored_t(self.plan, alpha)
+
+    def _gsa_on_mesh(self, cals: list) -> list:
+        """The calibrators, their sweeps spread over the ranks of this
+        engine's ('n',) mesh (``gsa.mesh``) where it has one."""
+        if self.plan is not None and _is_mesh(self.mesh):
+            for cal in cals:
+                cal.gsa_mesh = self.mesh
+        return cals
+
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's t on every rank of a mesh; t itself on one device."""
+        return t if self.plan is None else self._ops.ring.agree(t)
+
+    def _sobol_indices_multi(self, ls: np.ndarray, s2: np.ndarray, noise: np.ndarray,
+                             x_dev: torch.Tensor, y_dev: torch.Tensor, X, kind, n_chunk,
+                             args_fetch: float) -> list:
+        """Several outputs' indices without errors (romcomma_tpu's,
+        ``distributed.py:1569``): each output's float64 posterior solve, one
+        at a time, then ONE interval pass for them all
+        (``calibrators.marginalize_intervals_stacked``)."""
+        from romcomma_tpu_torch.gsa.calibrators import (ClosedSobol, _synchronize,
+                                                        marginalize_intervals_stacked)
+        kinds = (kind,) if isinstance(kind, str) else tuple(kind)
+        (outputs, M), N = ls.shape, self.N
+        meta = {} if n_chunk is None else {'n_chunk': n_chunk}
+        t0 = time.perf_counter()
+        alphas = [self._alpha(ls[l], s2[l], noise[l], x_dev, y_dev, l) for l in range(outputs)]
+        _synchronize(alphas[-1])
+        t_posterior = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flat = [(0, M)] + [s for k in kinds for s in FAMILIES[k](M)]
+        with pinned_device(self.device):
+            cals = self._gsa_on_mesh([ClosedSobol.from_arrays(
+                F=np.asarray([[s2[l]]]), K_cho=torch.zeros((1, 1, 1), dtype=torch.float64,
+                                                            device=self.device),
+                K_inv_Y=alphas[l].T.reshape(1, 1, N), Lambda=ls[l][None, :], X=X,
+                is_F_diagonal=True, L=1, M=M, N=N, **meta) for l in range(outputs)])
+            V_cols = [self._agree(out['V'])[0, 0].cpu().numpy()
+                      for out in marginalize_intervals_stacked(cals, tuple(flat))]
+        self.last_gsa_timings = {'posterior_s': t_posterior,
+                                 'intervals_s': time.perf_counter() - t0,
+                                 'args_fetch_s': args_fetch, 'outputs': outputs}
+        return [self._kinds_from_V(V, kinds, M, kind) for V in V_cols]
+
+    def _psi_half_solvers(self, ls: np.ndarray, s2: np.ndarray, noise: np.ndarray,
+                          x_dev: torch.Tensor, seconds: Dict[str, float]) -> list:
+        """One psi half solver per output for ``factorized_errors._psi_solve``,
+        each building its output's float64 factor at its first call. The
+        outputs share one slot: building a factor drops the one before, so the
+        stacked error GSA holds one float64 (Npad, Npad) factor at a time, as
+        romcomma_tpu's lazy ``psi_solver_factory`` does (``distributed.py:1730-1737``).
+        The seconds spent factorizing add up in ``seconds['k_cho_s']``."""
+        from romcomma_tpu_torch.gsa.factorized_errors import _psi_solve
+        slot: Dict[str, object] = {}
+
+        def solver(l: int):
+            def half(factor: torch.Tensor) -> torch.Tensor:
+                if slot.get('output') != l:
+                    slot.clear()
+                    t0 = time.perf_counter()
+                    slot['output'], slot['chol'] = l, (
+                        self._factor64 if self.plan is None else self._mesh_factor64)(
+                        ls[l], s2[l], noise[l], x_dev)
+                    seconds['k_cho_s'] += time.perf_counter() - t0
+                chol = slot['chol']
+                return (_psi_solve(chol[None], factor) if self.plan is None else
+                        self._half_solver(chol)(factor))
+            return half
+
+        return [solver(l) for l in range(ls.shape[0])]
+
+    def _sobol_indices_multi_error(self, ls: np.ndarray, s2: np.ndarray, noise: np.ndarray,
+                                   x_dev: torch.Tensor, y_dev: torch.Tensor, X, kind, n_chunk,
+                                   is_T_partial: bool, args_fetch: float) -> list:
+        """Several outputs' indices with W/T errors (romcomma_tpu's,
+        ``distributed.py:1666``): each output's float64 posterior solve, one
+        at a time, then ONE stacked V pass and ONE stacked W/T sweep
+        (``calibrators.marginalize_intervals_error_stacked``), each output's
+        psi factors half-solved against its own float64 factor, rebuilt one
+        output at a time (``_psi_half_solvers``)."""
+        from romcomma_tpu_torch.gsa.calibrators import (ClosedSobolWithError, _synchronize,
+                                                        marginalize_intervals_error_stacked)
+        t_start = time.perf_counter()
+        kinds = (kind,) if isinstance(kind, str) else tuple(kind)
+        (outputs, M), N = ls.shape, self.N
+        meta = {'is_T_partial': bool(is_T_partial)} | (
+            {} if n_chunk is None else {'n_chunk': n_chunk})
+        t0 = time.perf_counter()
+        alphas = [self._alpha(ls[l], s2[l], noise[l], x_dev, y_dev, l) for l in range(outputs)]
+        _synchronize(alphas[-1])
+        t_posterior = time.perf_counter() - t0
+        seconds = {'k_cho_s': 0.0}
+        solvers = self._psi_half_solvers(ls, s2, noise, x_dev, seconds)
+        t0 = time.perf_counter()
+        flat = [(0, M)] + [s for k in kinds for s in FAMILIES[k](M)]
+        with pinned_device(self.device):
+            cals = self._gsa_on_mesh([ClosedSobolWithError.from_arrays(
+                F=np.asarray([[s2[l]]]), K_cho=torch.zeros((1, 1, 1), dtype=torch.float64,
+                                                            device=self.device),
+                K_inv_Y=alphas[l].T.reshape(1, 1, N), Lambda=ls[l][None, :], X=X,
+                is_F_diagonal=True, L=1, M=M, N=N, psi_half_solver=solvers[l], **meta)
+                for l in range(outputs)])
+            t_setup = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            outs = [{key: self._agree(out[key])[0, 0].cpu().numpy() for key in ('V', 'T')}
+                    for out in marginalize_intervals_error_stacked(cals, tuple(flat))]
+        del solvers
+        self.last_gsa_timings = {'posterior_s': t_posterior, 'k_cho_s': seconds['k_cho_s'],
+                                 'setup_s': t_setup, 'intervals_s': time.perf_counter() - t0,
+                                 'args_fetch_s': args_fetch,
+                                 'total_s': time.perf_counter() - t_start, 'outputs': outputs}
+        self.last_gsa_timings.update({f'iv_{k}': v for k, v in
+                                      cals[0].last_interval_timings.items()})
+        results = []
+        for out in outs:
+            T_all = out['T'][1:]
+            T_by_kind = {k: {m: float(T_all[i * M + m]) for m in range(M)}
+                         for i, k in enumerate(kinds)}
+            results.append({'S': self._kinds_from_V(out['V'], kinds, M, kind),
+                            'T': T_by_kind[kind] if isinstance(kind, str) else T_by_kind})
         return results
 
     def _sobol_indices_one(self, ls: np.ndarray, s2, noise, x_dev: torch.Tensor,
@@ -875,12 +1091,10 @@ class DistributedGP:
             _synchronize(cal.V[0])
             t_setup = time.perf_counter() - t0
             t0 = time.perf_counter()
-            if self.mesh is not None:
-                cal.gsa_mesh = self.mesh
+            self._gsa_on_mesh([cal])
             flat = [(0, M)] + [s for k in kinds for s in FAMILIES[k](M)]
-            out = cal.marginalize_intervals(tuple(flat))
-            if self.mesh is not None:
-                out = {key: self._ops.ring.agree(value) for key, value in out.items()}
+            out = {key: self._agree(value)
+                   for key, value in cal.marginalize_intervals(tuple(flat)).items()}
             V_all = out['V'][0, 0].cpu().numpy()
         t_intervals = time.perf_counter() - t0
         sweep = getattr(cal, 'last_interval_timings', None) or {
@@ -951,18 +1165,29 @@ class DistributedGP:
         the same steps and returns the same bits. ``mask`` = (lengthscales, signal
         variance, noise) trainability as 0/1 floats. Returns ((ls, s2, noise),
         lml, iterations), lml being the optimizer's own final value (-inf
-        where the factorization breaks down there)."""
+        where the factorization breaks down there).
+
+        A one-device 'cyclic' engine of at most DENSE_DIRECT_MAX_N rows takes
+        romcomma_tpu's dense direct descent (``distributed.py:1842-1879``):
+        ``ExactLML`` on the rows in their original order, and the engine's
+        descent only where that one ends on a non-finite LML."""
         x_dev, y_dev = self._device_arrays(X, Y)
         raw0 = self._raw0(x_dev, ls0, s2_0, noise0)
         merge = self._merge(raw0, mask)
 
-        def objective(raw):
-            return -self.lml(*self._constrain(merge(raw)), x_dev, y_dev[:, :1])
+        def descent(lml):
+            res = lbfgs.minimize(lambda raw: -lml(*self._constrain(merge(raw))), raw0,
+                                 maxiter=maxiter, gtol=gtol,
+                                 max_linesearch_steps=max_linesearch_steps)
+            with torch.no_grad():
+                return self._constrain(merge(res.params)), -res.value, res.iterations
 
-        res = lbfgs.minimize(objective, raw0, maxiter=maxiter, gtol=gtol,
-                             max_linesearch_steps=max_linesearch_steps)
-        with torch.no_grad():
-            return self._constrain(merge(res.params)), -res.value, res.iterations
+        if self.engine == 'cyclic' and self.plan.S == 1 and self.N <= self.DENSE_DIRECT_MAX_N:
+            x, y = self._as_working(X), self._as_working(Y).reshape(self.N, -1)[:, :1]
+            out = descent(lambda ls, s2, noise: ExactLML.apply(ls, s2, noise, x, y))
+            if np.isfinite(out[1]):
+                return out
+        return descent(lambda ls, s2, noise: self.lml(ls, s2, noise, x_dev, y_dev[:, :1]))
 
     def fits_multi(self, L: int) -> bool:
         """Whether romcomma_tpu's joint L-output descent fits its memory rule,

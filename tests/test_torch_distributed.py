@@ -21,8 +21,9 @@ from romcomma_tpu.data.storage import Fold as JaxFold
 from romcomma_tpu.data.storage import Repository as JaxRepository
 from romcomma_tpu.models.gpr import MOGP as JaxMOGP
 from romcomma_tpu.parallel import distributed as jax_dist
-from romcomma_tpu_torch import north_star
+from romcomma_tpu_torch import cyclic2_engine, error_gsa, multi_output_gsa, north_star
 from romcomma_tpu_torch.base.definitions import pinned_device
+from romcomma_tpu_torch.gsa import calibrators
 from romcomma_tpu_torch.data.storage import Fold, Repository
 from romcomma_tpu_torch.models import gp, params
 from romcomma_tpu_torch.models.gpr import MOGP
@@ -31,6 +32,7 @@ from romcomma_tpu_torch.ops import lbfgs
 from romcomma_tpu_torch.ops.transforms import positive_inverse
 from romcomma_tpu_torch.parallel import distributed
 from romcomma_tpu_torch.parallel.distributed import DistributedGP
+from test_torch_slice import T2_ROW_FLOOR, T2_RTOL
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -74,7 +76,7 @@ def problem():
                         0.5 * X[:, 1:2] ** 2 + 0.05 * rng.normal(size=(N, 1))], axis=1)
     hypers = (rng.uniform(0.8, 2.0, M), 1.7, 0.05)
     jax_dgp = jax_dist.DistributedGP(N, _one_device_mesh(), block=BLOCK, dense_kernels=True)
-    dgp = DistributedGP(N, block=BLOCK)
+    dgp = DistributedGP(N, block=BLOCK, dense_kernels=True)
     return dict(X=X, Y=Y, hypers=hypers, jax=jax_dgp, jax_staged=jax_dgp.stage(X, Y[:, :1]),
                 port=dgp, staged=dgp.stage(X, Y[:, :1]), Xs=rng.normal(size=(7, M)))
 
@@ -252,7 +254,7 @@ def test_calibrate_multi_matches_per_output():
     X = rng.uniform(size=(Nn, Mm))
     Y = np.stack([np.sin((l + 1.0) * X[:, 0]) + 0.1 * X[:, 1] ** (l + 1)
                   + 0.05 * rng.standard_normal(Nn) for l in range(L)], axis=1)
-    dgp = DistributedGP(Nn, block=16)
+    dgp = DistributedGP(Nn, block=16, dense_kernels=True)
     assert dgp.fits_multi(L)
     ls0 = np.full((L, Mm), 2.0)
     (ls_b, s2_b, noise_b), lml_b, _ = dgp.calibrate_multi(X, Y, ls0, np.ones(L),
@@ -335,6 +337,54 @@ def test_mogp_large_route_matches(one_output_fold, monkeypatch):
     np.testing.assert_allclose(stored, jax_stored, rtol=1e-6)
 
 
+class _Stop(Exception):
+    """Ends a large-route calibration once its engines are built."""
+
+
+def _large_route_engines(cls, engine_of, calibrate_model, monkeypatch) -> list:
+    """The engines of the DistributedGPs that a large-route calibration
+    builds: its own, then, its first descent ending non-finite, its float64
+    rescue's, whose descent ends the calibration."""
+    engines, init = [], cls.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        engines.append(engine_of(self))
+
+    def calibrate(self, X, Y, ls0, s2_0, noise0, **kwargs):
+        if len(engines) > 1:
+            raise _Stop
+        return (ls0, s2_0, noise0), -np.inf, 0
+
+    monkeypatch.setattr(cls, '__init__', recorded)
+    monkeypatch.setattr(cls, 'calibrate', calibrate)
+    with pytest.raises(_Stop):
+        calibrate_model()
+    return engines
+
+
+@pytest.mark.parametrize('min_n, want', [(None, ['upper', 'cyclic']), (32, ['cyclic2', 'cyclic'])],
+                         ids=['below-the-threshold', 'past-the-threshold'])
+def test_mogp_large_route_takes_romcomma_tpus_engines(one_output_fold, monkeypatch, min_n, want):
+    """MOGP's large route in both packages, with CYCLIC2_SINGLE_CHIP_MIN_N as
+    it is or lowered below the fold's N: the descent's engine and its float64
+    rescue's are romcomma_tpu's, on one device."""
+    monkeypatch.setattr(jax_dist, 'make_n_mesh', lambda n=1: _one_device_mesh())
+    if min_n is not None:
+        monkeypatch.setattr(jax_dist.DistributedGP, 'CYCLIC2_SINGLE_CHIP_MIN_N', min_n)
+        monkeypatch.setattr(DistributedGP, 'CYCLIC2_SINGLE_CHIP_MIN_N', min_n)
+    options = dict(maxiter=5, large_n_threshold=1, distributed_block=8)
+    theirs = _large_route_engines(
+        jax_dist.DistributedGP, lambda g: g._engine, lambda: JaxMOGP(
+            'routing', JaxFold(JaxRepository(one_output_fold / 'jax'), 0), is_read=False,
+            is_covariant=False, is_isotropic=False).calibrate(**options), monkeypatch)
+    mine = _large_route_engines(
+        DistributedGP, lambda g: g.engine, lambda: MOGP(
+            'routing', Fold(Repository(one_output_fold / 'port'), 0), is_read=False,
+            is_covariant=False, is_isotropic=False).calibrate(**options), monkeypatch)
+    assert mine == theirs == want
+
+
 def test_mogp_large_route_rescues_in_float64(tmp_path, monkeypatch):
     """A descent that ends on a non-finite LML is rerun on a float64 engine
     with at most 4 line-search steps; if that one is non-finite too, the
@@ -414,3 +464,113 @@ def test_north_star_record_on_the_cpu():
     S1 = out['S1_first3']
     assert S1[0] > 0.3 and S1[1] > 0.3 and S1[2] < 0.01 and sum(S1) < 1.01
     assert state['x_dev'].dtype == torch.float32
+
+
+#: The stacked GSA's problem: problem()'s X with three outputs, and the chunk
+#: both routes take, so that the stacked pass and the loop add alike.
+STACKED_L, STACKED_CHUNK = 3, 32
+STACKED_KINDS = ('first_order', 'closed', 'total')
+
+
+@pytest.fixture(scope='module')
+def stacked(problem):
+    """Three outputs' indices, without and with errors: the port's stacked
+    pass ('upper' and a one-device 'cyclic2') and its per-output loop, and
+    romcomma_tpu's stacked pass, computed once."""
+    X = problem['X']
+    rng = np.random.default_rng(17)
+    Y = np.concatenate([problem['Y'], np.cos(X[:, 2:3]) + 0.05 * rng.normal(size=(N, 1))], axis=1)
+    ls, s2, noise = problem['hypers']
+    hypers = (np.stack([ls, 1.4 * ls, 0.8 * ls]), np.array([s2, 0.9, 1.2]),
+              np.array([noise, 0.04, 0.06]))
+    out = {'hypers': hypers}
+    engines = {'upper': problem['port'],
+               'cyclic2': DistributedGP(N, block=BLOCK, dtype=np.float64, engine='cyclic2')}
+    for error in (False, True):
+        options = dict(kind=STACKED_KINDS, error=error, n_chunk=STACKED_CHUNK)
+        for name, dgp in engines.items():
+            x, y = dgp.stage(X, Y)
+            out[name, error] = dgp.sobol_indices(*hypers, x, y, X, **options)
+            out[name, error, 'timings'] = dict(dgp.last_gsa_timings)
+            out[name, error, 'loop'] = [
+                dgp.sobol_indices(*(h[l] for h in hypers), x, y[:, l:l + 1], X, **options)
+                for l in range(STACKED_L)]
+        jax_dgp = problem['jax']
+        out['romcomma_tpu', error] = jax_dgp.sobol_indices(
+            *hypers, *jax_dgp.stage(X, Y), X, kind=STACKED_KINDS, error=error)
+    return out
+
+
+def _tables(result, error: bool):
+    """{part: (kinds, M) array} of one output's indices."""
+    tables = {'S': result['S'] if error else result} | ({'T': result['T']} if error else {})
+    return {part: np.array([[t[k][m] for m in range(M)] for k in STACKED_KINDS])
+            for part, t in tables.items()}
+
+
+@pytest.mark.parametrize('engine', ['upper', 'cyclic2'])
+@pytest.mark.parametrize('error', [False, True], ids=['S', 'S-and-T'])
+def test_stacked_sobol_indices_match_the_loop(stacked, engine, error):
+    """Three outputs in one stacked pass: each output's S (and T) within 1e-12
+    of its own sobol_indices call, on the chunks both take."""
+    got = stacked[engine, error]
+    assert isinstance(got, list) and len(got) == STACKED_L
+    assert stacked[engine, error, 'timings']['outputs'] == STACKED_L
+    for g, w in zip(got, stacked[engine, error, 'loop']):
+        for part, table in _tables(g, error).items():
+            np.testing.assert_allclose(table, _tables(w, error)[part], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize('error', [False, True], ids=['S', 'S-and-T'])
+def test_stacked_sobol_indices_match_romcomma_tpu(stacked, error):
+    """The stacked pass against romcomma_tpu's ``_sobol_indices_multi[_error]``:
+    S at S_TOL, T as T^2 (test_torch_slice.py's rule)."""
+    for g, w in zip(stacked['upper', error], stacked['romcomma_tpu', error]):
+        got, want = _tables(g, error), _tables(w, error)
+        np.testing.assert_allclose(got['S'], want['S'], **S_TOL)
+        if error:
+            T2, W2 = got['T'] ** 2, want['T'] ** 2
+            assert np.all(np.abs(T2 - W2) <= T2_RTOL * W2 + T2_ROW_FLOOR * W2.max()), (T2, W2)
+
+
+def test_multi_output_sobol_indices_take_one_stacked_pass(problem, monkeypatch):
+    """sobol_indices with (L, M) lengthscales runs ONE interval pass of all
+    L calibrators (and one W/T sweep), not one per output."""
+    passes, sweeps = [], []
+    intervals_pass = calibrators._intervals_pass
+    monkeypatch.setattr(calibrators, '_intervals_pass',
+                        lambda cals, slices: passes.append(len(cals)) or intervals_pass(cals, slices))
+    from romcomma_tpu_torch.gsa import factorized_errors
+    scan = factorized_errors.error_scan_folds
+    monkeypatch.setattr(factorized_errors, 'error_scan_folds',
+                        lambda cals, need: sweeps.append(len(cals)) or scan(cals, need))
+    ls, s2, noise = problem['hypers']
+    dgp = problem['port']
+    x, y = dgp.stage(problem['X'], problem['Y'])
+    hypers = (np.stack([ls, ls]), np.array([s2, s2]), np.array([noise, noise]))
+    dgp.sobol_indices(*hypers, x, y, problem['X'], kind=KINDS, error=True)
+    assert passes == [2] and sweeps == [2]
+
+
+def test_measurement_entry_points_on_the_cpu(monkeypatch):
+    """cyclic2_engine, multi_output_gsa and error_gsa at a small size: every
+    engine's value and gradient agree, the stacked pass is the loop's, and
+    the large route's W/T GSA ('cyclic2' here, the threshold lowered) is the
+    CPU oracle's, checked on the problem's first rows."""
+    out = cyclic2_engine.run((200,), 4, 1, on='cpu')
+    row = out['200']
+    assert set(row) == set(cyclic2_engine.ENGINES)
+    for name in ('cyclic2', 'cyclic'):
+        assert row[name]['value'] == pytest.approx(row['upper']['value'], rel=1e-4)
+        assert row[name]['grad_l2'] == pytest.approx(row['upper']['grad_l2'], rel=1e-4)
+    out = multi_output_gsa.run(200, 4, 3, 'error_all', on='cpu', n_chunk=64)
+    assert out['max_dS_vs_sequential'] <= 1e-12 and out['max_dT_vs_sequential'] <= 1e-12
+    assert out['stacked_timings']['outputs'] == 3
+    monkeypatch.setattr(DistributedGP, 'CYCLIC2_SINGLE_CHIP_MIN_N', 100)
+    monkeypatch.setattr(error_gsa, 'ORACLE_MAX_N', 150)
+    out = error_gsa.run(200, 4, on='cpu')
+    assert out['engine'] == 'cyclic2' and out['oracle_N'] == 150
+    assert out['max_abs_dS_vs_cpu_f64'] <= 1e-10
+    assert out['max_abs_dT2_vs_cpu_f64'] <= T2_RTOL * out['max_T2'] + 1e-12
+    with pytest.raises(ValueError, match=distributed.TPU_TIERS[:30]):
+        error_gsa.run(200, 4, intervals_mixed='ff', on='cpu')

@@ -301,7 +301,7 @@ def _distributed_tables(X, Y, Xs, hypers, on):
     inputs on `on`, on the host."""
     import numpy as np
     from romcomma_tpu_torch.parallel.distributed import DistributedGP
-    dgp = DistributedGP(len(X), mesh=on, dtype=np.float64)
+    dgp = DistributedGP(len(X), mesh=on, dtype=np.float64, engine='upper')
     x, y = dgp.stage(X, Y)
     p = [torch.tensor(h, dtype=torch.float64, device=on, requires_grad=True) for h in hypers]
     value = dgp.lml(*p, x, y)
@@ -355,7 +355,7 @@ def test_distributed_gp_float32_lml_through_the_kernel(cuda):
     X, Y = north_star.problem(2048, 30)
     hypers, results = (np.full(30, 3.0), 1.0, 0.1), []
     for dtype in (np.float32, np.float64):
-        dgp = DistributedGP(2048, mesh=cuda, dtype=dtype)
+        dgp = DistributedGP(2048, mesh=cuda, dtype=dtype, engine='upper')
         x, y = dgp.stage(X, Y)
         p = [torch.tensor(h, dtype=x.dtype, device=cuda, requires_grad=True) for h in hypers]
         before = gram_kernels.LAUNCHES
@@ -367,6 +367,24 @@ def test_distributed_gp_float32_lml_through_the_kernel(cuda):
     for got, want in zip(grads32, grads64):
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())
 
+
+
+def test_ring_tile_in_float64_is_float32_strips_of_the_kernel(cuda):
+    """A float32 ring tile kept in float64 (the one-device engines' gram,
+    MeshLML): one launch per TILE_STRIP_ROWS rows, a clamped tail included,
+    each strip the bits of its own float32 launch, widened."""
+    from romcomma_tpu_torch.parallel.distributed import TILE_STRIP_ROWS, ring_tile
+    n = 2 * TILE_STRIP_ROWS + 300
+    u, _ = _inputs(n, 1, 30, cuda, seed=3)
+    ls, s2 = torch.full((30,), 0.7, device=cuda), torch.tensor(2.5, device=cuda)
+    before = gram_kernels.LAUNCHES
+    got = ring_tile(u, u, ls, s2, torch.float64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (n, n)
+    assert gram_kernels.LAUNCHES == before + 3
+    for r0 in range(0, n, TILE_STRIP_ROWS):
+        strip = gram.rbf_gram(u[r0:r0 + TILE_STRIP_ROWS], u, ls, s2)
+        assert torch.equal(got[r0:r0 + TILE_STRIP_ROWS], strip.double()), r0
 
 
 def test_covariant_mesh_float32_value_and_grad_at_one_rank(cuda):

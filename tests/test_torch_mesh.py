@@ -6,7 +6,8 @@ mesh's GSA sweeps), the deferred engine with several super panels and a
 partial tail (parallel/cyclic_deferred.py) and the error calibrator's mesh
 sweeps (gsa/mesh.py), each held to romcomma_tpu's on make_n_mesh(S) of the
 conftest's 8 virtual devices from the same seeded inputs; every rank's
-results are bitwise equal, a short calibrate included. The spawns also run
+results are bitwise equal, a short calibrate included, and a float32
+engine computes in float32 throughout, as romcomma_tpu's. The spawns also run
 tests/test_torch_covariant_mesh.py's rank bodies (``mesh_suite_runs``)."""
 
 import os
@@ -206,6 +207,18 @@ def test_mesh_indices_match_romcomma_tpu(port, reference, S, engine):
         want = np.array([theirs['T'][kind][i] for i in m]) ** 2
         assert np.all(np.abs(got - want) <= T2_RTOL * want + T2_ROW_FLOOR * want.max()), \
             (kind, got, want)
+
+
+@pytest.mark.parametrize('S, engine', CASES, ids=IDS)
+def test_float32_engines_keep_their_dtype_on_several_ranks(port, S, engine):
+    """Over S > 1 ranks a float32 engine computes as romcomma_tpu's does, in
+    float32 throughout: its LML is float32, and its LML and gradient are the
+    bits of the engine's own float32 gram, factor, solves and reductions
+    (one device factorizes in float64: test_torch_cyclic_deferred.py)."""
+    dtype, through, steps = port[S][0][engine]['float32']
+    assert dtype == 'torch.float32'
+    for got, want in zip(through, steps):
+        assert got.dtype == np.float32 and np.array_equal(got, want)
 
 
 @pytest.mark.parametrize('S', SIZES)

@@ -153,7 +153,7 @@ def test_run_gpr_on_two_ranks_writes_the_one_rank_tree(two_ranks):
     improper fold (60 rows, large_n_threshold=50) trains over the two ranks'
     'cyclic2' mesh, its scipy descent in lockstep; rank 0 writes."""
     results, alone, roots = two_ranks
-    assert alone['run_gpr'] == [(60, None)]
+    assert alone['run_gpr'] == [(60, 'upper')]
     assert [r['run_gpr'] for r in results] == [[(60, 'cyclic2')]] * 2
     _same_tree(ranks.tree(roots['run_gpr alone'], cut=roots['run_gpr alone']),
                ranks.tree(roots['run_gpr'], cut=roots['run_gpr']))
@@ -200,25 +200,25 @@ def test_chip_smoke_phase_13b_rank_body_on_gloo():
     """chip_smoke.py's phase 13b as it runs on several cards (its rank body
     spawned by name, every rank's result the same bits), on two gloo ranks
     at a small north-star problem and a small covariant one: each engine's
-    float32 LML and gradient held to float64 ExactLML's by phase 13's rule,
-    within MESH_F32_MULTIPLES of ExactLML float32's own distance, and the
+    float32 LML and gradient held to float64 ExactLML's by phase 13b's rule,
+    within MESH_RANKS_F32_MULTIPLES of ExactLML float32's own distance, and the
     covariant mesh's to float64 CovariantUpperLML's by phase 13c's, within
     COVARIANT_MESH_F32_MULTIPLES of CovariantUpperLML float32's."""
     size = (300, 4)
     hypers = (np.full(size[1], 2.0, np.float32), np.float32(1.0), np.float32(0.05))
     point = _covariant_point()
     results = chip_smoke.mesh_ranks(2, size, hypers, point, 'gloo', 120)
-    one = DistributedGP(size[0], torch.device('cpu'), dtype=np.float32)
+    one = DistributedGP(size[0], torch.device('cpu'), dtype=np.float32, engine='upper')
     x, y = one.stage(*north_star.problem(*size))
     at = [torch.as_tensor(h) for h in hypers]
     f32 = chip_smoke._value_and_grad(torch, one, x, y, at)
-    one64 = DistributedGP(size[0], torch.device('cpu'), dtype=np.float64)
+    one64 = DistributedGP(size[0], torch.device('cpu'), dtype=np.float64, engine='upper')
     x64, y64 = one64.stage(x, y)
     f64 = chip_smoke._value_and_grad(torch, one64, x64, y64, [t.double() for t in at])
     reference = chip_smoke._apart(f32, f64)
     for engine in chip_smoke.MESH_ENGINES:
         apart = chip_smoke._apart([torch.as_tensor(g) for g in results[0][engine]], f64)
-        assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.MESH_F32_MULTIPLES,
+        assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.MESH_RANKS_F32_MULTIPLES,
                                                  reference)), (engine, apart, reference)
     X, Y, ls, F, noise = (torch.as_tensor(a) for a in point)
     f32, f64 = (chip_smoke._covariant_value_and_grads(

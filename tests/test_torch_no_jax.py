@@ -8,7 +8,8 @@ the stacked GSA) on a repository of two equal folds; then the likelihood
 layer, regression.gls and the CSV CLI's run (imported with the sweep CLI),
 with the CPU pinned, as a Python caller pins it, around csv_script.run; and
 the multi-device modules (parallel.mesh, multihost, cyclic_deferred,
-covariant_mesh, spawn, gsa.mesh, graft_entry) import."""
+covariant_mesh, spawn, gsa.mesh, graft_entry) and the measurement entry
+points (cyclic2_engine, multi_output_gsa, error_gsa) import."""
 
 import subprocess
 import sys
@@ -55,7 +56,7 @@ from romcomma_tpu_torch.base.definitions import pinned_device
 with pinned_device(torch.device('cpu')):
     csv_script.run({str(tmp_path / 'csv')!r}, {str(tmp_path / 'data.csv')!r}, gpr=True, gsa=True,
                    ignore_exceptions=False, k=2)
-from romcomma_tpu_torch import graft_entry
+from romcomma_tpu_torch import cyclic2_engine, error_gsa, graft_entry, multi_output_gsa
 from romcomma_tpu_torch.gsa import mesh as gsa_mesh
 from romcomma_tpu_torch.parallel import covariant_mesh, cyclic_deferred, mesh, multihost, spawn
 assert multihost.process_identity() == (0, 1)

@@ -53,8 +53,10 @@ def engines(rank: int, super_block=None, maxiter: int = 6) -> dict:
     """Per engine on this mesh: the gram, the factor (and for 'cyclic2' its
     inverse) gathered in stored row order, the log-det and alpha from the
     engine's solves; the LML and its gradient; the float64 posterior alpha
-    and predictions; the indices of two kinds with T; and a short calibrate
-    with every point it evaluated."""
+    and predictions; the indices of two kinds with T; a short calibrate
+    with every point it evaluated; and the float32 engine's LML and
+    gradient beside its own float32 gram, factor, solves and reductions
+    (``float32``)."""
     from romcomma_tpu_torch.parallel import distributed as dist
     from romcomma_tpu_torch.parallel.cyclic_deferred import DeferredEngine
     X, Y, Xs, hypers = problem()
@@ -95,11 +97,37 @@ def engines(rank: int, super_block=None, maxiter: int = 6) -> dict:
             X, Y, np.full(M, 1.0), 1.0, 0.1, maxiter=maxiter)
         result['calibrate'] = (seen, [t.numpy() for t in (ls_opt, s2_opt, noise_opt)],
                                float(lml_opt), iterations)
+        result['float32'] = _float32_steps(engine, super_block, X, Y, hypers)
         if rank:                                    # only rank 0 sends the big arrays
             for key in ('gram', 'factor', 'inverse'):
                 result.pop(key, None)
         out[engine] = result
     return out
+
+
+def _float32_steps(engine: str, super_block, X, Y, hypers) -> tuple:
+    """(the float32 engine's LML dtype, its LML and gradient through
+    ``DistributedGP.lml``, the same from the engine's float32 steps: gram,
+    factor, solves, log-det, residual and reductions)."""
+    import math
+
+    from romcomma_tpu_torch.parallel import distributed as dist
+    from romcomma_tpu_torch.parallel.cyclic_deferred import DeferredEngine
+    gp = dist.DistributedGP(N, dist.make_n_mesh(), block=B, dtype=np.float32, engine=engine)
+    if super_block is not None and engine == 'cyclic2':
+        gp._ops = DeferredEngine(gp.plan, gp.mesh, super_block)
+    ops = gp._ops
+    x, y = gp.stage(X, Y)
+    p = [torch.tensor(np.asarray(h, dtype=np.float32), requires_grad=True) for h in hypers]
+    value = gp.lml(*p, x, y)
+    through = [value.detach().numpy()] + [g.numpy() for g in torch.autograd.grad(value, p)]
+    at = [t.detach() for t in p]
+    F = ops.chol(ops.gram(x, *at))
+    z = ops.fwd(F, y)
+    alpha = ops.bwd(F, z)
+    steps = -0.5 * torch.sum(z * z) - ops.logdiag(F) - 0.5 * N * math.log(2.0 * math.pi)
+    grads = ops.grads(ops.residual(F), alpha, x, *at)
+    return (str(value.dtype), through, [steps.numpy()] + [g.numpy() for g in grads])
 
 
 def mesh_suite(rank: int, q: int, arrays: dict, slices: tuple) -> dict:
