@@ -69,8 +69,9 @@ Phases (each prints its result and its time; none catches its own failure):
         optimum to romcomma_tpu's recorded LML and to a float64 descent
         (engine='upper') warm-started from it; the residual of its float64
         posterior, its per-phase times and peak memory by stage, one
-        value+grad timed beside engine='upper''s (at NORTH_STAR_UPPER_OPTIMUM,
-        where ExactLML float32 factorizes) and profiled by kernel and by op;
+        value+grad timed beside engine='upper''s streaming route (at
+        NORTH_STAR_UPPER_OPTIMUM, where ExactLML float32 factorizes) and
+        profiled by kernel and by op;
      b. run.gpr (variant, isotropic then anisotropic, maxiter=20, float32,
         tested) on OAKLEY2004 at N=10240, M=30, K=2: the two 5120-row folds
         take the small route and the improper 10240-row fold the large one
@@ -92,6 +93,20 @@ Phases (each prints its result and its time; none catches its own failure):
         floats: its 128-row strips from the row where it does, and the last,
         against the plain version, its forward timed beside the plain one
         and its bound;
+     e. the one-device streaming gradient (float32 unless named): at
+        N=20000 and NORTH_STAR_UPPER_OPTIMUM, engine='upper' (the factor
+        inverted in place into V, the one (Npad, Npad) buffer kept, the
+        backward's pair tiles) and its 'vvt' strips against ExactLML float32
+        and float64, each LML part within STREAM_F32_MULTIPLES of ExactLML
+        float32's own distance from float64, the LML at the start within
+        phase 4's bound, ms, the memory held after each forward and the
+        peak, launches per value+grad; at N=50000, 'upper' forced (holding V
+        and O(Npad 2048) after its forward) beside ExactLML, and 'cyclic'
+        past GRADS_MEMORY_BUDGET_BYTES (K^-1 strips from identity-column
+        solves) against 'cyclic2'; at N=24000 the float64 'cyclic' of the
+        large route's rescue against float64 'cyclic2': each gradient within
+        STREAM_CYCLIC_RTOL; the kernel at the new shapes, (2048^2, 30) and
+        (2048 x 50176, 30), two operands, against its plain version;
   9. ROM (romcomma_tpu_torch.rom_scale, the port of benchmarks/rom_scale.py:
      N=8192, M=10, a planted plane, float32 calibrations through the kernel):
      a. the 'sobol' rotation for 3 iterations: the planted plane within 5
@@ -135,7 +150,7 @@ Phases (each prints its result and its time; none catches its own failure):
      a. the kernel at the mesh tiles' shapes ((20224^2, 30), the ring's one
         tile; (3584^2, 30) two operands, 'cyclic2''s pair tiles) against its
         plain version, timed, with their bounds; the one-device reference
-        (engine='upper': ExactLML float32 and float64, the float64 posterior, the indices
+        (engine='upper' with ExactLML: float32 and float64, the float64 posterior, the indices
         with T and their one-ulp spreads); then, in an NCCL group of this
         process alone (world size 1), DistributedGP with engine='cyclic' and
         'cyclic2' over make_n_mesh(): at the north star's start (MESH_START)
@@ -181,8 +196,9 @@ device's; the record counts the unit-gram launches of the main paths, run.gpr
 of phase 4 and of phase 7, both north stars and run.gpr of phase 8, the two
 ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines' and
 the covariant mesh's calibrates of phase 13, each counted from 0 just
-before it runs, and, as a path of the same kernel, its batched launches among
-them (phases 4, 8b, 11 and 12). Exits non-zero, printing no result, where
+before it runs, and the value+grads of phase 8e's streaming routes, and,
+as a path of the same kernel, its batched launches among them (phases 4,
+8b, 11 and 12). Exits non-zero, printing no result, where
 there is no CUDA device or no checkout around the script.
 """
 
@@ -1579,18 +1595,21 @@ def device_time_shares(torch, step):
 
 
 def _engine_launches(dgp) -> int:
-    """Unit-gram launches of one float32 value+grad of dgp on one device: 1
-    for 'upper' (one gram); for the engines the gram's float32 strips
-    (ceil(Npad / TILE_STRIP_ROWS), written into the float64 gram), then
-    the gram once more for 'cyclic', or the pair tiles of NS super panels,
+    """Unit-gram launches of one float32 value+grad of dgp on one device:
+    for 'upper' the gram, then its n strips' pair tiles, n (n + 1) / 2 (n
+    strips with GRAD_PAIR_TILES off); for the engines the gram's float32
+    strips (ceil(Npad / TILE_STRIP_ROWS), written into the float64 gram),
+    then the gram once more for 'cyclic' (or its gram rows strip by strip
+    past the memory budget), or the pair tiles of NS super panels,
     NS (NS + 1) / 2, for 'cyclic2'."""
+    _, count = dgp.grad_strip()
     if dgp.engine == 'upper':
-        return 1
+        return 1 + (count * (count + 1) // 2 if dgp.GRAD_PAIR_TILES else count)
     from romcomma_tpu_torch.parallel.cyclic_deferred import super_sizes
     from romcomma_tpu_torch.parallel.distributed import TILE_STRIP_ROWS
     strips = -(-dgp.plan.Npad // TILE_STRIP_ROWS)
     if dgp.engine == 'cyclic':
-        return strips + 1
+        return strips + (count if dgp.grad_route() == 'solves' else 1)
     panels = len(super_sizes(dgp.plan, dgp._ops.q))
     return strips + panels * (panels + 1) // 2
 
@@ -1721,13 +1740,15 @@ def north_star_phase(torch, gram_kernels):
     upper = DistributedGP(N_, dtype=np.float32, engine='upper')
     xu, yu = upper.stage(state['X'], state['Y'])
     upper_wall, upper_step = _valgrad_ms(torch, gram_kernels, upper, xu, yu, at)
-    del upper, xu, yu
+    del xu, yu
     print(f'N={N_}: one float32 value+grad on the {dgp.engine!r} route at its optimum '
           f'({out["iters"]} iterations) {wall:.2f} ms wall (mean of 3), {per_step:.0f} unit-gram '
           f'launches per step, peak device memory {peak:.2f} GiB; at NORTH_STAR_UPPER_OPTIMUM '
-          f'{there:.2f} ms, engine=\'upper\' (ExactLML) there {upper_wall:.2f} ms, '
-          f'{upper_step:.0f} launch: {there / upper_wall:.3f} of it', flush=True)
-    require(per_step == _engine_launches(dgp) and upper_step == 1, (per_step, upper_step))
+          f'{there:.2f} ms, engine=\'upper\' (streaming) there {upper_wall:.2f} ms, '
+          f'{upper_step:.0f} launches: {there / upper_wall:.3f} of it', flush=True)
+    require(per_step == _engine_launches(dgp) and upper_step == _engine_launches(upper),
+            (per_step, upper_step))
+    del upper
 
     def step():
         p = [t.clone().requires_grad_(True) for t in hypers]
@@ -1901,6 +1922,242 @@ def north_star_large_phase(torch, gram_kernels):
     return launches, check_large_tile(torch, gram_kernels, x, hypers[0].detach())
 
 
+#: Phase 8e, the one-device streaming gradient: 'upper' against ExactLML at
+#: the north star's N; 'upper' forced at N=50000; 'cyclic' past
+#: GRADS_MEMORY_BUDGET_BYTES, in float32 at N=50000 and in float64 (the
+#: large route's rescue engine) at N=24000, each against 'cyclic2'.
+STREAM_N, STREAM_LARGE_N, STREAM_RESCUE_N = 20000, 50000, 24000
+#: The kernel at the streaming gradient's shapes, two operands: a pair tile
+#: and a strip's gram rows against all Npad = 50176 rows.
+STREAM_TILE_SHAPES = ((2048, 2048, 30, False), (2048, 50176, 30, False))
+#: 'upper''s float32 LML, dls, ds2 and dnoise at NORTH_STAR_UPPER_OPTIMUM
+#: against float64 ExactLML: within these multiples of ExactLML float32's
+#: own distance from float64 there, and its pair tiles against its 'vvt'
+#: strips within the same. Set from the H100's first reading (PERF.md):
+#: 1.06, 0.86, 13.1, 1.04 (pair tiles), 1.06, 0.95, 37.9, 1.04 ('vvt'
+#: strips), 0, 0.09, 24.8, 0.0003 (one against the other); ds2, sum(Bbar o
+#: Knn) over K^-1 formed as V V^T in float32, is the least accurate, as over
+#: several ranks (MESH_RANKS_F32_MULTIPLES, whose limits these are).
+STREAM_F32_MULTIPLES = (4.0, 4.0, 100.0, 4.0)
+#: Each one-device 'cyclic' streaming gradient part against 'cyclic2''s at
+#: the same point: max |diff| / max |part|.
+STREAM_CYCLIC_RTOL = 1e-6
+
+
+class ExactReference:
+    """A one-device DistributedGP (engine='upper') whose ``lml`` is the dense
+    exact LML, ``models.gp.ExactLML`` (the gram, its factor and
+    cholesky_inverse's K^-1: three (N, N) buffers), which the small route
+    and a fold group evaluate: the reference phases 8b, 8e and 13 hold the
+    large route's engines to. Everything else is the engine's."""
+
+    def __init__(self, gp):
+        self.gp = gp
+
+    def lml(self, ls, s2, noise, x, y):
+        from romcomma_tpu_torch.models.gp import ExactLML
+        return ExactLML.apply(*self.gp._cast(x, ls, s2, noise), x, y)
+
+    def __getattr__(self, name):
+        return getattr(self.gp, name)
+
+
+def streaming_valgrad(torch, gram_kernels, gp, x, y, at, n=0):
+    """One value+grad of gp at the hyperparameters `at`, measured: {'parts':
+    [LML, dls, ds2, dnoise] in float64, 'held': GiB allocated after the
+    forward above what was held before it, 'peak': the value+grad's peak
+    GiB above that, 'launches': its unit-gram launches, 'ms': its host-clock
+    ms, or the median of n more where n > 0}."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches, t0 = gram_kernels.LAUNCHES, time.perf_counter()
+    p = [t.detach().clone().requires_grad_(True) for t in at]
+    value = gp.lml(*p, x, y)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    grads = torch.autograd.grad(value, p)
+    torch.cuda.synchronize()
+    out = {'ms': (time.perf_counter() - t0) * 1e3, 'held': held / 2 ** 30,
+           'peak': (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+           'launches': gram_kernels.LAUNCHES - launches,
+           'parts': [value.detach().double()] + [g.double() for g in grads]}
+    del value, grads, p
+    if n:
+        out['ms'] = median_ms(torch, lambda: _value_and_grad(torch, gp, x, y, at), n)
+    return out
+
+
+def _relative(got, want) -> list:
+    """max |got - want| / max |want| of each part."""
+    return [float((g - w).abs().max()) / (float(w.abs().max()) or 1.0) for g, w in zip(got, want)]
+
+
+def _reading(label, r) -> str:
+    return (f'{label}: {r["ms"]:.2f} ms, held after the forward {r["held"]:.3f} GiB, peak '
+            f'{r["peak"]:.3f} GiB above what was held, {r["launches"]} unit-gram launches')
+
+
+def check_stream_tiles(torch, gram_kernels):
+    """The kernel at STREAM_TILE_SHAPES against its plain version, timed
+    (CUDA events) beside the plain one and its bound. Returns {shape: (ms,
+    plain ms, bound ms, bound by, max |kernel - plain|)}."""
+    times = {}
+    for A, B, M_, shared in STREAM_TILE_SHAPES:
+        u, v = unit_inputs(torch, A, B, M_, seed=B + 3, shared=shared)
+        err = (gram_kernels.unit_gram_cuda(u, v) - gram_kernels.unit_gram_plain(u, v)
+               ).abs().max().item()
+        (kernel,), (plain,) = (spread_ms(torch, [lambda: gram_kernels.unit_gram_cuda(u, v)],
+                                         samples=20, calls=5),
+                               spread_ms(torch, [lambda: gram_kernels.unit_gram_plain(u, v)],
+                                         samples=5, calls=2))
+        bound, bound_by = forward_bound_ms(A, B, M_, shared)
+        times[(A, B, M_, shared)] = (kernel[1], plain[1], bound, bound_by, err)
+        print(f'streaming tile ({A}, {B}, {M_}, two operands): max |kernel - plain| {err:.3e} '
+              f'(tol {VALUE_TOL}); forward ms kernel min / median / max {kernel[0]:.4f} / '
+              f'{kernel[1]:.4f} / {kernel[2]:.4f} (20 samples of 5), plain median '
+              f'{plain[1]:.4f}; bound {bound:.4f} ms ({bound_by}), kernel at '
+              f'{bound / kernel[1]:.3f} of it', flush=True)
+        require(err <= VALUE_TOL, (A, B, M_, err))
+        del u, v
+    return times
+
+
+def streaming_phase(torch, gram_kernels):
+    """Phase 8e: the one-device streaming LML gradient on the card, float32
+    unless named. At the north star's problem at N=STREAM_N and
+    NORTH_STAR_UPPER_OPTIMUM: engine='upper' (the in-place inverse, V kept,
+    the pair tiles) against ExactLML float32 and float64, its LML parts
+    within STREAM_F32_MULTIPLES of ExactLML float32's own distance from
+    float64, its 'vvt' strips against its pair tiles within the same, at
+    MESH_START its LML within phase 4's bound of float64 ExactLML's; the
+    memory each holds after its forward and its peak. At N=STREAM_LARGE_N:
+    'upper' forced, holding V and O(Npad strip) after its forward, beside
+    ExactLML; 'cyclic' past the budget (the identity-column strips) against
+    'cyclic2' at the same point; at N=STREAM_RESCUE_N the float64 'cyclic'
+    of the large route's rescue against float64 'cyclic2': each gradient
+    part within STREAM_CYCLIC_RTOL. The kernel at the new shapes against
+    its plain version. Returns (the unit-gram launches of the streaming
+    routes' value+grads, the shapes' times)."""
+    import numpy as np
+    from romcomma_tpu_torch import north_star
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    tiles = check_stream_tiles(torch, gram_kernels)
+    failures = []
+    M_ = NORTH_STAR[1]
+
+    def hypers(values, dtype):
+        return tuple(torch.as_tensor(np.asarray(v), dtype=dtype, device=CARD) for v in values)
+
+    start = (np.full(M_, MESH_START[0]), *MESH_START[1:])
+    X, Y = north_star.problem(STREAM_N, M_)
+    at = hypers(upper_hypers(), torch.float32)
+    exact = ExactReference(DistributedGP(STREAM_N, CARD, dtype=np.float32, engine='upper'))
+    x, y = exact.stage(X, Y)
+    r = {'ExactLML float32': streaming_valgrad(torch, gram_kernels, exact, x, y, at, n=3)}
+    exact64 = ExactReference(DistributedGP(STREAM_N, CARD, dtype=np.float64, engine='upper'))
+    x64, y64 = exact64.stage(x, y)
+    r['ExactLML float64'] = streaming_valgrad(torch, gram_kernels, exact64, x64, y64,
+                                              tuple(t.double() for t in at))
+    with torch.no_grad():
+        start64 = exact64.lml(*hypers(start, torch.float64), x64, y64).item()
+    del exact64, x64, y64
+    upper = DistributedGP(STREAM_N, CARD, dtype=np.float32, engine='upper')
+    r['upper, pair tiles'] = streaming_valgrad(torch, gram_kernels, upper, x, y, at, n=3)
+    upper.GRAD_PAIR_TILES = False
+    r['upper, vvt strips'] = streaming_valgrad(torch, gram_kernels, upper, x, y, at, n=3)
+    with torch.no_grad():
+        start32 = upper.lml(*hypers(start, torch.float32), x, y).item()
+    upper.GRAD_PAIR_TILES = True
+    f64 = r['ExactLML float64']['parts']
+    reference = _apart(r['ExactLML float32']['parts'], f64)
+    apart = {label: _apart(r[label]['parts'], f64) for label in ('upper, pair tiles',
+                                                                 'upper, vvt strips')}
+    apart['pair tiles against vvt strips'] = _apart(r['upper, pair tiles']['parts'],
+                                                    r['upper, vvt strips']['parts'])
+    strip, count = upper.grad_strip()
+    V_gib = upper._upper.plan.Npad ** 2 * 4 / 2 ** 30
+    slack_gib = 4 * upper._upper.plan.Npad * strip * 4 / 2 ** 30
+    bound = 10 * STREAM_N * EPS['float32'] * (1.0 / MESH_START[2] + 1.0)
+    print(f'N={STREAM_N} at NORTH_STAR_UPPER_OPTIMUM (Npad {upper._upper.plan.Npad}, strips of '
+          f'{strip}: {count * (count + 1) // 2} pair tiles, V {V_gib:.3f} GiB): ExactLML float32 '
+          f'against float64 {_parts(reference)}; '
+          + '; '.join(f'{label} {_parts(a)} (multiples ' + ', '.join(
+              f'{v / w:.3f}' for v, w in zip(a, reference)) + ')' for label, a in apart.items())
+          + f' (limits {STREAM_F32_MULTIPLES}); at MESH_START LML float32 {start32:.6f}, float64 '
+          f'ExactLML {start64:.6f}, |diff| {abs(start32 - start64):.3e} (phase 4 bound '
+          f'{bound:.3e})', flush=True)
+    for label, reading in r.items():
+        print(f'  {_reading(label, reading)}', flush=True)
+    for label, a in apart.items():
+        if not all(v <= m * w for v, m, w in zip(a, STREAM_F32_MULTIPLES, reference)):
+            failures.append((label, a, reference))
+    if abs(start32 - start64) > bound:
+        failures.append(('LML at MESH_START', start32, start64, bound))
+    if r['upper, pair tiles']['held'] > V_gib + slack_gib:
+        failures.append(('upper holds more than V', r['upper, pair tiles']['held'], V_gib))
+    launches = (r['upper, pair tiles']['launches'], r['upper, vvt strips']['launches'])
+    if launches != (1 + count * (count + 1) // 2, 1 + count):
+        failures.append(('launches', launches, count))
+    del exact, upper, x, y
+
+    X, Y = north_star.problem(STREAM_LARGE_N, M_)
+    large = {}
+    for label, engine in (('upper', 'upper'), ('ExactLML', 'upper'), ('cyclic', 'cyclic'),
+                          ('cyclic2', 'cyclic2')):
+        gp = DistributedGP(STREAM_LARGE_N, CARD, dtype=np.float32, engine=engine)
+        if label == 'ExactLML':
+            gp = ExactReference(gp)
+        x, y = gp.stage(X, Y)
+        large[label] = streaming_valgrad(torch, gram_kernels, gp, x, y,
+                                         hypers(start, torch.float32))
+        large[label]['route'] = 'ExactLML' if label == 'ExactLML' else gp.grad_route()
+        del gp, x, y
+    Npad = -(-STREAM_LARGE_N // 256) * 256
+    V_gib = Npad ** 2 * 4 / 2 ** 30
+    slack_gib = 4 * Npad * DistributedGP.GRAD_STRIP_COLS * 4 / 2 ** 30
+    cyclic = _relative(large['cyclic']['parts'], large['cyclic2']['parts'])
+    upper, exact = large['upper'], large['ExactLML']
+    print(f'N={STREAM_LARGE_N} at MESH_START (Npad {Npad}, V {V_gib:.3f} GiB): LML upper '
+          f'{upper["parts"][0].item():.6f}, ExactLML {exact["parts"][0].item():.6f}, upper '
+          f'against ExactLML {_parts(_apart(upper["parts"], exact["parts"]))}; cyclic '
+          f'({large["cyclic"]["route"]}) against cyclic2 relative {_parts(cyclic)} (limit '
+          f'{STREAM_CYCLIC_RTOL} on the gradient)', flush=True)
+    for label, reading in large.items():
+        print(f'  {_reading(label + " (" + reading["route"] + ")", reading)}', flush=True)
+    if upper['held'] > V_gib + slack_gib or upper['route'] != 'pairs':
+        failures.append(('upper at N=50000', upper['held'], V_gib, upper['route']))
+    if large['cyclic']['route'] != 'solves' or max(cyclic[1:]) > STREAM_CYCLIC_RTOL:
+        failures.append(('cyclic at N=50000', large['cyclic']['route'], cyclic))
+    if not all(bool(torch.isfinite(p).all()) for v in large.values() for p in v['parts']):
+        failures.append(('non-finite at N=50000', {k: [p.max().item() for p in v['parts']]
+                                                   for k, v in large.items()}))
+    del X, Y
+
+    X, Y = north_star.problem(STREAM_RESCUE_N, M_)
+    rescue = {}
+    for label, options in (('cyclic', {}), ('cyclic2', {'engine': 'cyclic2'})):
+        gp = DistributedGP(STREAM_RESCUE_N, CARD, dtype=np.float64, **options)
+        x, y = gp.stage(X, Y)
+        rescue[label] = streaming_valgrad(torch, gram_kernels, gp, x, y,
+                                          hypers(start, torch.float64))
+        rescue[label]['route'] = gp.grad_route()
+        del gp, x, y
+    cyclic = _relative(rescue['cyclic']['parts'], rescue['cyclic2']['parts'])
+    print(f'N={STREAM_RESCUE_N} float64 at MESH_START: the rescue\'s cyclic '
+          f'({rescue["cyclic"]["route"]}) against cyclic2 relative {_parts(cyclic)} (limit '
+          f'{STREAM_CYCLIC_RTOL} on the gradient)', flush=True)
+    for label, reading in rescue.items():
+        print(f'  {_reading(label + " (" + reading["route"] + ")", reading)}', flush=True)
+    if rescue['cyclic']['route'] != 'solves' or max(cyclic[1:]) > STREAM_CYCLIC_RTOL:
+        failures.append(('the rescue\'s cyclic at N=24000', rescue['cyclic']['route'], cyclic))
+    require(not failures, failures)
+    streamed = [r['upper, pair tiles'], r['upper, vvt strips'], large['upper'], large['cyclic'],
+                rescue['cyclic']]
+    return sum(reading['launches'] for reading in streamed), tiles
+
+
 def trained_variant(torch, folder, dtype, on=None):
     """The raw variant parameters stored under a trained model's folder, read
     from its CSVs (the large route writes (L, M) lengthscales for an
@@ -1993,8 +2250,8 @@ def check_exact_lml(torch, gram_kernels, fold, name):
     a warm-up); then ExactLML's value and its ls, s2 and noise gradients, in
     float32 (gram from the kernel) and in float64 (plain gram), each against
     autograd through the float64 Cholesky of the plainly built K, on the same
-    parameters and inputs. Both variant routes evaluate their LML through
-    ExactLML, so this holds the small route's as well.
+    parameters and inputs (``ExactReference``): the small route's LML and a
+    fold group's, and phase 8e's reference for the large route's 'upper'.
 
     The limits are phase 7's, from the measured spectrum of the float64 K: a
     perturbation dK of norm eps lam_max moves the LML by at most
@@ -2014,7 +2271,7 @@ def check_exact_lml(torch, gram_kernels, fold, name):
     with torch.no_grad():
         c = params.variant_constrain(trained_variant(torch, fold.folder / name, torch.float32))
     hypers = (c['lengthscales'][0], c['variance'][0], c['noise'][0])
-    dgp = DistributedGP(N, dtype=torch.float32, engine='upper')
+    dgp = ExactReference(DistributedGP(N, dtype=torch.float32, engine='upper'))
 
     def step():
         p = [t.clone().requires_grad_(True) for t in hypers]
@@ -2044,7 +2301,7 @@ def check_exact_lml(torch, gram_kernels, fold, name):
     launches = gram_kernels.LAUNCHES
     readings = {'float32': value_and_grads(lambda *p: dgp.lml(*p, X, Y[:, 0]), hypers)}
     require(gram_kernels.LAUNCHES == launches + 1, 'the float32 gram missed the kernel')
-    dgp64 = DistributedGP(N, dtype=torch.float64, engine='upper')
+    dgp64 = ExactReference(DistributedGP(N, dtype=torch.float64, engine='upper'))
     readings['float64'] = value_and_grads(lambda *p: dgp64.lml(*p, X64, y64), hypers64)
     want = value_and_grads(autograd_lml, hypers64)
     ls64, s2_64, noise64 = hypers64
@@ -2854,8 +3111,8 @@ def _parts(values) -> str:
 
 
 def mesh_reference(torch, X, Y, Xs, hypers):
-    """Phase 13's one-device reference, engine='upper', at ``hypers``
-    (NORTH_STAR_UPPER_OPTIMUM): the
+    """Phase 13's one-device reference, engine='upper' with ExactLML as its
+    LML (``ExactReference``), at ``hypers`` (NORTH_STAR_UPPER_OPTIMUM): the
     float32 ExactLML value and gradient (and its median ms), the float64 one
     on the same float32-rounded data, the float32 one's distance from it
     part by part and the float64 parts' sizes; the float32 LML at
@@ -2865,12 +3122,12 @@ def mesh_reference(torch, X, Y, Xs, hypers):
     import numpy as np
     from romcomma_tpu_torch.parallel.distributed import DistributedGP
     N_ = len(X)
-    one = DistributedGP(N_, CARD, dtype=np.float32, engine='upper')
+    one = ExactReference(DistributedGP(N_, CARD, dtype=np.float32, engine='upper'))
     x, y = one.stage(X, Y)
     at32 = tuple(torch.tensor(h, dtype=torch.float32, device=CARD) for h in hypers)
     ref = {'f32': _value_and_grad(torch, one, x, y, at32),
            'ms': median_ms(torch, lambda: _value_and_grad(torch, one, x, y, at32))}
-    one64 = DistributedGP(N_, CARD, dtype=np.float64, engine='upper')
+    one64 = ExactReference(DistributedGP(N_, CARD, dtype=np.float64, engine='upper'))
     x64, y64 = one64.stage(x, y)
     ref['f64'] = _value_and_grad(torch, one64, x64, y64, tuple(t.double() for t in at32))
     ref['apart'] = _apart(ref['f32'], ref['f64'])
@@ -3365,9 +3622,12 @@ def main() -> int:
     distributed_card_against_cpu(torch)
     t_large = time.perf_counter()
     large_star_launches, strip_err = north_star_large_phase(torch, gram_kernels)
+    t_stream = time.perf_counter()
+    stream_launches, stream_tiles = streaming_phase(torch, gram_kernels)
     print(f'phase 8: {time.perf_counter() - t:.2f} s (run.gpr N={LARGE_N} {large_seconds:.2f} s; '
-          f'8d {time.perf_counter() - t_large:.2f} s); worst LML error / bound {large_worst:.3e}; '
-          f'worst ExactLML error / limit {exact_worst:.3e}', flush=True)
+          f'8d {t_stream - t_large:.2f} s; 8e {time.perf_counter() - t_stream:.2f} s); worst LML '
+          f'error / bound {large_worst:.3e}; worst ExactLML error / limit {exact_worst:.3e}',
+          flush=True)
 
     t = phase(f'9. ROM: the N={ROM_N} M={ROM_M} planted plane, \'sobol\' for '
               f'{ROM_SOBOL_ITERATIONS} iterations and \'active_subspace\' for '
@@ -3413,9 +3673,10 @@ def main() -> int:
         'source': 'romcomma_tpu_torch/csrc/unit_gram.cu',
         'replaces': 'romcomma_tpu/ops/pallas_kernels.py:59',
         'launches': (launches + covariant_launches + north_star_launches + large_launches
-                     + large_star_launches + sobol_launches + active_launches + csv_launches
-                     + sweep_launches + mesh_launches),
-        'max_abs_err': max(max_err, strip_err, *(tile[4] for tile in mesh_tiles.values())),
+                     + large_star_launches + stream_launches + sobol_launches + active_launches
+                     + csv_launches + sweep_launches + mesh_launches),
+        'max_abs_err': max(max_err, strip_err, *(tile[4] for tile in mesh_tiles.values()),
+                           *(tile[4] for tile in stream_tiles.values())),
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'library_ms': None}, {
         'name': 'unit_gram (batched launch)', 'route': 'cuda',

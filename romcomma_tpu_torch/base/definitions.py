@@ -110,20 +110,58 @@ def group_size() -> int:
     return dist.get_world_size() if in_process_group() else 1
 
 
+class PeerFailed(RuntimeError):
+    """Another rank of the process group failed: raised on every rank at the
+    collective where a failing rank announced it (``any_rank_failed``)."""
+
+
+def _max_over_ranks(flag: float) -> float:
+    """The largest of every rank's ``flag``: one MAX all_reduce of one value
+    over the default group (on the card under NCCL)."""
+    import torch.distributed as dist
+    on = torch.device('cuda') if dist.get_backend() == 'nccl' else torch.device('cpu')
+    t = torch.tensor([flag], dtype=torch.float32, device=on)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def any_rank_failed(failed: bool) -> bool:
+    """Whether this rank or any other of the process group failed: under a
+    group of several ranks one MAX all_reduce of the flag, the collective
+    every rank makes once after an attempt that may fail on some ranks
+    alone. It also pairs with the barrier of a ``write_once`` that a rank
+    still in the attempt has reached: that rank raises ``PeerFailed`` there,
+    and has then agreed. Without a group (or inside ``solo()``) it returns
+    ``failed``."""
+    if group_size() == 1:
+        return failed
+    return _max_over_ranks(float(failed)) > 0.0
+
+
+def _barrier() -> None:
+    """write_once's barrier: one MAX all_reduce of 0, which raises
+    ``PeerFailed`` where a failing rank announced itself in it."""
+    if _max_over_ranks(0.0) > 0.0:
+        raise PeerFailed('another rank of the process group failed')
+
+
 def write_once(write: Callable[..., Any], *args: Any, **kwargs: Any) -> None:
     """Write to the model tree once for the process group: ``write(*args,
-    **kwargs)`` on rank 0 alone, then, under a group of several ranks, a
-    barrier, so no rank reads the tree before the write is on disk. Without
-    a process group (or inside ``solo()``) it is a plain call. Every rank of
-    a group runs the same folds, so each reaches the same write sites in the
-    same order."""
+    **kwargs)`` on rank 0 alone. Under a group of several ranks a barrier
+    before it, so that no rank still reads a file that rank 0 rewrites (a
+    model read back, ``MOGP(is_read=True)``, rewrites the CSVs it has just
+    read), and one after it, so that no rank reads the tree before the write
+    is on disk. Without a process group (or inside ``solo()``) it is a plain
+    call. Every rank of a group runs the same folds, so each reaches the
+    same write sites in the same order."""
     import torch.distributed as dist
     if group_size() == 1:
         write(*args, **kwargs)
         return
+    _barrier()
     if dist.get_rank() == 0:
         write(*args, **kwargs)
-    dist.barrier()
+    _barrier()
 
 
 @contextmanager

@@ -1,5 +1,6 @@
 """Head to head on one card: romcomma_tpu's three ``DistributedGP`` engines,
-'upper', 'cyclic2' and 'cyclic', each forced onto one device, over N.
+'upper', 'cyclic2' and 'cyclic', each forced onto one device, and the dense
+``ExactLML`` ('exact'), over N.
 
 Counterpart of ``benchmarks/cyclic2_engine.py``: the same problem (seed 0,
 X ~ N(0, 1) of shape (N, M), Y = sin(x0) + 0.1 eps), the same point (ls 2,
@@ -8,17 +9,24 @@ per engine, and the same fields per engine (``valgrad_s`` the fastest,
 ``first_s``, ``value``, ``grad_l2``); several N in one process, where the
 reference takes one, plus every timed value+grad, the unit-gram launches of
 one, the peak device memory above what was held before it, and the card's
-name and power limit. On one device the collectives of 'cyclic2' and
-'cyclic' are the identity, so the numbers compare the engines' structure:
-'upper' is ExactLML (three (N, N) buffers, cuSOLVER's factor and
-``cholesky_inverse``), 'cyclic2' the deferred super panels, the in-place
-inverse and the pair tiles, 'cyclic' the right-looking block factor.
+name and power limit, and the memory allocated after the forward above
+what was held before it (what the backward keeps). On one device the
+collectives of 'cyclic2' and 'cyclic' are the identity, so the numbers
+compare the engines' structure: 'upper' is romcomma_tpu's streaming route
+(cuSOLVER's factor inverted in place into V = U^-1, the one (Npad, Npad)
+buffer kept, and the pair tiles of the backward, all in float32), 'exact'
+the small route's ExactLML on the same staging (three (N, N) buffers,
+cuSOLVER's factor and ``cholesky_inverse``), 'cyclic2' the deferred super
+panels, the in-place inverse and the pair tiles, 'cyclic' the right-looking
+block factor (both with a float64 factor on one device), the latter past
+``GRADS_MEMORY_BUDGET_BYTES`` with K^-1 streamed from identity-column
+solves.
 
     python -m romcomma_tpu_torch.cyclic2_engine [Ns] [M] [reps] [engines]
 
-``Ns`` is a comma list (default 12288,16384,20000,32768), ``engines`` a
-comma list of upper,cyclic2,cyclic (default all three). The command needs a
-CUDA device and prints one JSON line.
+``Ns`` is a comma list (default 10240,12288,16384,20000,32768), ``engines``
+a comma list of upper,exact,cyclic2,cyclic (default all four). The command
+needs a CUDA device and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -32,12 +40,13 @@ from typing import Any, Dict, Sequence
 import numpy as np
 import torch
 
+from romcomma_tpu_torch.models.gp import ExactLML
 from romcomma_tpu_torch.north_star import _card, _synchronize
 from romcomma_tpu_torch.ops import gram_kernels
 from romcomma_tpu_torch.parallel.distributed import DistributedGP
 
-NS = (12288, 16384, 20000, 32768)
-ENGINES = ('upper', 'cyclic2', 'cyclic')
+NS = (10240, 12288, 16384, 20000, 32768)
+ENGINES = ('upper', 'exact', 'cyclic2', 'cyclic')
 
 
 def problem(N: int, M: int):
@@ -64,22 +73,29 @@ def run(Ns: Sequence[int] = NS, M: int = 30, reps: int = 3, engines: Sequence[st
         X, Y = problem(N, M)
         row = {}
         for name in engines:
-            dgp = DistributedGP(N, on, dtype=np.float32, engine=name)
-            if dgp.engine != name:
-                raise RuntimeError(f'DistributedGP took {dgp.engine!r} for engine={name!r}')
+            engine = 'upper' if name == 'exact' else name
+            dgp = DistributedGP(N, on, dtype=np.float32, engine=engine)
+            if dgp.engine != engine:
+                raise RuntimeError(f'DistributedGP took {dgp.engine!r} for engine={engine!r}')
             x, y = dgp.stage(X, Y)
+            lml = (lambda *p: ExactLML.apply(*p, x, y)) if name == 'exact' else (
+                lambda *p: dgp.lml(*p, x, y))
+            after_forward = []
 
             def valgrad():
                 p = [torch.tensor(v, dtype=torch.float32, device=on, requires_grad=True)
                      for v in point]
                 _synchronize(on)
                 t0 = time.perf_counter()
-                value = dgp.lml(*p, x, y)
+                value = lml(*p)
+                if cuda and not after_forward:
+                    after_forward.append(torch.cuda.memory_allocated(on))
                 grads = torch.autograd.grad(value, p)
                 _synchronize(on)
                 return time.perf_counter() - t0, value, grads
 
             if cuda:
+                torch.cuda.empty_cache()
                 held = torch.cuda.memory_allocated(on)
                 torch.cuda.reset_peak_memory_stats(on)
             first_s, value, grads = valgrad()
@@ -91,7 +107,9 @@ def run(Ns: Sequence[int] = NS, M: int = 30, reps: int = 3, engines: Sequence[st
                 'grad_l2': math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in grads)),
                 'launches_per_valgrad': (gram_kernels.LAUNCHES - launches) / reps,
                 'peak_above_held_gib': ((torch.cuda.max_memory_allocated(on) - held) / 2 ** 30
-                                        if cuda else None)}
+                                        if cuda else None),
+                'after_forward_gib': (after_forward[0] - held) / 2 ** 30 if cuda else None,
+                'grad_route': 'exact' if name == 'exact' else dgp.grad_route()}
             del dgp, x, y, value, grads
             if cuda:
                 torch.cuda.empty_cache()

@@ -211,10 +211,16 @@ def rbf_gram_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tens
     """Single-output ARD-RBF gram variance * unit_gram(x1/ls, x2/ls): (A,B).
     lengthscales (M,) or scalar; variance scalar. Differentiable in all four.
     A training gram (x1 is x2) scales its inputs once and hands the kernel one
-    tensor; autograd then sums the two input gradients into it."""
+    tensor; autograd then sums the two input gradients into it. Where no
+    gradient is recorded (an engine's gram, a custom backward's forward) the
+    variance scales the kernel's output in place, so that no second (A, B)
+    buffer lives beside it."""
     ls = torch.broadcast_to(lengthscales, (x1.shape[-1],))
     u = (x1 / ls).contiguous()
-    return variance * unit_gram(u, u if x2 is x1 else (x2 / ls).contiguous())
+    E = unit_gram(u, u if x2 is x1 else (x2 / ls).contiguous())
+    if torch.is_grad_enabled() and (E.requires_grad or variance.requires_grad):
+        return variance * E
+    return E.mul_(variance)
 
 
 def stack_scaled(x: torch.Tensor, lengthscales: torch.Tensor) -> torch.Tensor:

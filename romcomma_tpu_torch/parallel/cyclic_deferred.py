@@ -347,6 +347,7 @@ class DeferredEngine:
 
     def __init__(self, pl_: Plan, mesh, super_block: int):
         self.plan, self.ring = pl_, Ring(mesh)
+        self.wide = pl_.S == 1                          # MeshLML: float64 on one rank
         self.q = super_q(pl_, super_block)
         perm, inv = stored_global_perms(pl_)
         self._perm = torch.as_tensor(perm, device=self.ring.device)

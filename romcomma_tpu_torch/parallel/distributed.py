@@ -11,12 +11,15 @@ without, 'cyclic'.
 'upper' (one device): on one card with native float64 and 80 GB,
 romcomma_tpu's single-device results come from cuSOLVER and cuBLAS directly:
 
-  - ``lml``: ``models.gp.ExactLML``, the exact log marginal likelihood with
-    the analytic backward of romcomma_tpu's custom VJP, which the small
-    route's ``gp.lml_single`` evaluates too. Its gram goes through
-    ``ops.gram.rbf_gram``, so a float32 gram on a CUDA device is one launch
-    of the hand-written unit-gram kernel, and the backward forms K^-1 once
-    (``cholesky_inverse``) instead of differentiating through the Cholesky.
+  - ``lml``: romcomma_tpu's streaming-v2 route (``UpperEngine`` through
+    ``MeshLML``), in the working dtype on the rows padded to Npad: the noisy
+    gram (on a card in float32, one launch of the hand-written unit-gram
+    kernel), its cuSOLVER factor K = U^T U in place, the solves, and U
+    inverted in place into V = U^-1, the one (Npad, Npad) buffer the
+    backward keeps; the backward rebuilds K^-1 tiles as V V^T products and
+    the gram tiles through the kernel (``grads_streaming_pairs``). The small
+    route, a fold group and the dense direct descent keep
+    ``models.gp.ExactLML``, which holds the gram, its factor and K^-1.
   - ``posterior_alpha``, ``predict``, ``make_psi_solver``: one float64
     Cholesky of the noisy gram, in the original row order. romcomma_tpu's
     factor ladder and iterative refinement repair a float32 factor; a
@@ -42,8 +45,11 @@ ranks on either side, ``psum`` ``all_reduce`` and ``all_gather``
     (the panel all-gathered, the trailing update local), ``solve_forward``,
     ``solve_backward``, ``log_diag_sum``; the backward builds K^-1 slab by
     slab from substitution sweeps and reduces the gradient from the slabs
-    (``grads_stored``). On one device of at most ``DENSE_DIRECT_MAX_N`` rows
-    it calibrates through ``ExactLML``, romcomma_tpu's dense direct descent.
+    (``grads_stored``), or, on one device past
+    ``GRADS_MEMORY_BUDGET_BYTES``, streams strips of K^-1 from
+    identity-column solves against the factor (``grads_streaming``). On one
+    device of at most ``DENSE_DIRECT_MAX_N`` rows it calibrates through
+    ``ExactLML``, romcomma_tpu's dense direct descent.
   - 'cyclic2': ``parallel.cyclic_deferred``, the left-looking super-panel
     factorization in global column order, its in-place triangular inverse
     and the half-ring pair-tile gradient: one (Npad, Npad) buffer in the
@@ -366,6 +372,7 @@ def cholesky(pl_: Plan, mesh):
     ring = Ring(mesh)
     S, B, c, NB = pl_.S, pl_.B, pl_.c, pl_.NB
     g_of_t = pl_.g_of_t
+    strip = max(1, TILE_STRIP_ROWS // B)                 # blocks of a trailing-update strip
 
     def factor(K_local):
         me = ring.me
@@ -387,13 +394,16 @@ def cholesky(pl_: Plan, mesh):
             r0 = _suffix(k, me, S)
             if r0 == c:
                 continue
-            rows = mine[r0:].reshape(-1, B)
             for d in range(S):
                 c0 = _suffix(k, d, S)
                 if c0 < c:
                     cols = P_L[d * c + c0:(d + 1) * c].reshape(-1, B)
-                    A[r0:, :, (d * c + c0) * B:(d + 1) * c * B] -= (rows @ cols.mT).view(
-                        c - r0, B, -1)
+                    # in row strips, so that the product is never a second
+                    # (c B, Npad) buffer beside the factor's
+                    for a in range(r0, c, strip):
+                        b = min(c, a + strip)
+                        A[a:b, :, (d * c + c0) * B:(d + 1) * c * B] -= (
+                            mine[a:b].reshape(-1, B) @ cols.mT).view(b - a, B, -1)
         for ci in range(c):                              # zero the stale upper part
             g = ci * S + me
             for d in range(S):
@@ -531,6 +541,7 @@ class CyclicEngine:
 
     def __init__(self, pl_: Plan, mesh):
         self.plan, self.ring = pl_, Ring(mesh)
+        self.wide = pl_.S == 1                          # MeshLML: float64 on one rank
         self.gram = ring_gram(pl_, mesh)
         self.chol = cholesky(pl_, mesh)
         self.fwd = solve_forward(pl_, mesh)
@@ -564,14 +575,178 @@ class CyclicEngine:
         return self._grads(K, self.kinv(L_local), alpha, x_stored, ls, s2, noise)
 
 
+# --------------------------------------------------------------------------- #
+# The one-device streaming gradient and the 'upper' engine
+# --------------------------------------------------------------------------- #
+
+def grads_streaming(pl_: Plan, strip: int, fwd=None, bwd=None):
+    """romcomma_tpu's ``_grads_streaming_fn``: dLML/d{ls, s2, noise} on one
+    device without a second (Npad, Npad) buffer. Strips of ``strip`` rows of
+    K^-1 and the matching signal-gram rows are rebuilt one at a time, so the
+    backward holds the engine's one (Npad, Npad) operand and O(Npad strip).
+
+    fn(F, alpha (Npad, 1), x (Npad, M), ls, s2, noise) -> (dls / ls^3,
+    ds2 / s2, dnoise), all in stored order. With ``fwd`` and ``bwd`` (the
+    engine's solves against its factor F), kinv_source 'solves': each strip
+    of K^-1 is bwd(F, fwd(F, identity columns)). Without, 'vvt': F is the
+    triangular inverse V = U^-1 of the 'upper' engine, K^-1 = V V^T, and each
+    strip is one product against V, contracted only over the columns the
+    strip's triangular zeros leave. The gram rows are built in x's dtype (on
+    a card in float32, the unit-gram kernel with two operands) and cast to
+    F's, in which the reductions run. The last strip is clamped to the end
+    and its rows that an earlier strip took are masked out (``fresh``), as
+    are padding rows and columns. dls comes from row and column sums and one
+    (strip, Npad) @ (Npad, M) product per strip: no (N, N, M) tensor."""
+    Npad = pl_.Npad
+
+    def grads(F, alpha, x, ls, s2, noise):
+        dt, dev = F.dtype, F.device
+        real = _real_mask(pl_, dt, dev)
+        a_full, xw = alpha[:, 0].to(dt), x.to(dt)
+        ar = torch.arange(strip, device=dev)
+        dls = torch.zeros(x.shape[1], dtype=dt, device=dev)
+        ds2, dnoise = torch.zeros((), dtype=dt, device=dev), torch.zeros((), dtype=dt, device=dev)
+        col_sum = torch.zeros(Npad, dtype=dt, device=dev)
+        for start in range(0, Npad, strip):
+            r0 = min(start, Npad - strip)
+            if fwd is None:
+                W = F[r0:r0 + strip, r0:] @ F[:, r0:].T            # K^-1 rows
+            else:
+                cols = torch.zeros((Npad, strip), dtype=dt, device=dev)
+                cols[r0 + ar, ar] = 1.0
+                W = bwd(F, fwd(F, cols)).T                        # K^-1 is symmetric
+                del cols
+            row_real = real[r0:r0 + strip] * ((r0 + ar) >= start)
+            W = W.neg_().addr_(a_full[r0:r0 + strip], a_full).mul_(0.5)
+            W.mul_(row_real[:, None]).mul_(real[None, :])            # Bbar
+            dnoise += torch.sum(W[ar, r0 + ar])
+            W.mul_(rbf_gram(x[r0:r0 + strip], x, ls, s2).to(dt))    # Bbar o Knn
+            ds2 += torch.sum(W)
+            col_sum += torch.sum(W, dim=0)
+            xs = xw[r0:r0 + strip]
+            dls += (xs * xs).T @ torch.sum(W, dim=1) - 2.0 * torch.sum(xs * (W @ xw), dim=0)
+            del W
+        dls = (dls + (xw * xw).T @ col_sum) / ls ** 3
+        return dls, ds2 / s2, dnoise
+
+    return grads
+
+
+def grads_streaming_pairs(pl_: Plan, strip: int):
+    """romcomma_tpu's ``_grads_streaming_pairs_fn``: the 'vvt' gradient of
+    ``grads_streaming`` over unordered tile pairs q >= t of ``strip`` rows.
+    W = Bbar o Knn is symmetric (alpha alpha^T and V V^T are), so each
+    off-diagonal pair enters every reduction at weight 2, and dnoise comes
+    from the diagonal pairs alone. Each K^-1 tile is one product of two thin
+    V row slabs, contracted only over the columns from the larger of the two
+    slabs' first rows (every column before it is a triangular zero of that
+    slab): about Npad^3 / 3 flops where the strips take 2 Npad^3. Each gram
+    tile is ``rbf_gram(xq, xt, ls, s2)``, on a card one launch of the
+    unit-gram kernel with two operands. Same contract: fn(V, alpha, x, ls,
+    s2, noise) -> (dls / ls^3, ds2 / s2, dnoise)."""
+    Npad = pl_.Npad
+    starts = range(0, Npad, strip)
+
+    def grads(V, alpha, x, ls, s2, noise):
+        dt, dev = V.dtype, V.device
+        real = _real_mask(pl_, dt, dev)
+        a_full, xw = alpha[:, 0].to(dt), x.to(dt)
+        ar = torch.arange(strip, device=dev)
+        acc = torch.zeros(x.shape[1] + 2, dtype=dt, device=dev)     # dls, ds2, dnoise
+        M = x.shape[1]
+
+        def tile(start):
+            r0 = min(start, Npad - strip)
+            return r0, real[r0:r0 + strip] * ((r0 + ar) >= start)
+
+        for q, q_start in enumerate(starts):
+            rq, mq = tile(q_start)
+            xq = xw[rq:rq + strip]
+            for t_start in starts[:q + 1]:
+                rt, mt = tile(t_start)
+                xt = xw[rt:rt + strip]
+                lo = max(rq, rt)
+                W = V[rq:rq + strip, lo:] @ V[rt:rt + strip, lo:].T
+                W = W.neg_().addr_(a_full[rq:rq + strip], a_full[rt:rt + strip]).mul_(0.5)
+                W.mul_(mq[:, None]).mul_(mt[None, :])                    # Bbar
+                if t_start == q_start:                                   # a diagonal pair
+                    acc[M + 1] += torch.trace(W)
+                W.mul_(rbf_gram(x[rq:rq + strip], x[rt:rt + strip], ls, s2).to(dt))
+                weight = 1.0 if t_start == q_start else 2.0
+                acc[M] += weight * torch.sum(W)
+                acc[:M] += weight * ((xq * xq).T @ torch.sum(W, dim=1)
+                                     + (xt * xt).T @ torch.sum(W, dim=0)
+                                     - 2.0 * torch.sum(xq * (W @ xt), dim=0))
+        return acc[:M] / ls ** 3, acc[M] / s2, acc[M + 1]
+
+    return grads
+
+
+class UpperEngine:
+    """romcomma_tpu's one-device 'upper' engine (``distributed.py:462-498``)
+    with its streaming-v2 backward (``:793``), with the interface of the mesh
+    engines on a one-device ``Plan`` (stored order is the original order,
+    padding rows at the tail): the noisy gram in the working dtype (on a card
+    in float32, one launch of the unit-gram kernel), factorized K = U^T U in
+    place by cuSOLVER, the solves against U, and U inverted in place into
+    V = U^-1 (``cyclic_deferred.invert_deferred`` at S = 1), so that what the
+    backward keeps of the forward is V alone. The backward is
+    ``grads_streaming_pairs`` or ``grads_streaming``'s 'vvt' strips
+    (``DistributedGP.grad_route``). Every step runs in the working dtype, as
+    romcomma_tpu's does (float32 products true float32)."""
+
+    #: A one-device engine of the working dtype: MeshLML keeps x's dtype.
+    wide = False
+
+    def __init__(self, pl_: Plan, device, super_block: int):
+        from romcomma_tpu_torch.parallel.cyclic_deferred import invert_deferred
+        self.plan, self.ring = pl_, Ring(device)
+        self.gram = ring_gram(pl_, device)
+        self.inv = invert_deferred(pl_, device, super_block)
+
+    @staticmethod
+    def chol(K: torch.Tensor) -> torch.Tensor:
+        """K = U^T U, U upper, in K's buffer: K read column-major is K^T = K,
+        whose lower factor, written there, is U in K's rows. A factorization
+        that breaks down gives NaN on the diagonal, so the value is -inf."""
+        Kt = K.mT
+        info = torch.empty((), dtype=torch.int32, device=K.device)
+        torch.linalg.cholesky_ex(Kt, out=(Kt, info))
+        K.diagonal().masked_fill_(info > 0, math.nan)
+        return K
+
+    @staticmethod
+    def fwd(U: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+        """U^T Z = Y."""
+        return torch.linalg.solve_triangular(U.mT, Y, upper=False)
+
+    @staticmethod
+    def bwd(U: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+        """U W = Z."""
+        return torch.linalg.solve_triangular(U, Z, upper=True)
+
+    @staticmethod
+    def logdiag(U: torch.Tensor) -> torch.Tensor:
+        """sum(log diag(U)); padding rows carry diag 1."""
+        return torch.sum(torch.log(torch.diagonal(U)))
+
+    def residual(self, U: torch.Tensor) -> torch.Tensor:
+        """What the backward keeps of the forward: V = U^-1, inverted in place."""
+        return self.inv(U)
+
+
 class MeshLML(torch.autograd.Function):
     """lml(ls, s2, noise) of one output over a mesh engine, with the analytic
     backward of romcomma_tpu's ``_build_lml`` custom VJP. The value and the
     gradient are rank 0's on every rank. Forward inputs: ls (M,), s2 and
     noise scalars, x_stored (Npad, M) and y (Npad, 1) in stored order, the
-    same on every rank, and the engine.
+    same on every rank, the engine, and the backward (``grads``; the
+    engine's own where None), which takes what ``engine.residual`` kept of
+    the factor.
 
-    On one device or one rank (S = 1) the LML is computed in float64
+    The 'upper' engine (``UpperEngine``, one device) computes in x's dtype
+    throughout, as romcomma_tpu's does. On one device or one rank (S = 1)
+    'cyclic' and 'cyclic2' (``engine.wide``) compute the LML in float64
     whatever the engine's dtype: a float32 engine's gram is built through
     the unit-gram kernel in float32 strips written into one float64
     (Npad, Npad) buffer (``ring_tile``), the noise added there, and the
@@ -593,16 +768,15 @@ class MeshLML(torch.autograd.Function):
     Npad) slab in that dtype."""
 
     @staticmethod
-    def forward(ctx, ls, s2, noise, x, y, engine):
+    def forward(ctx, ls, s2, noise, x, y, engine, grads=None):
         N = engine.plan.N
-        F = engine.chol(engine.gram(x, ls, s2, noise,
-                                    torch.float64 if engine.plan.S == 1 else x.dtype))
+        F = engine.chol(engine.gram(x, ls, s2, noise, torch.float64 if engine.wide else x.dtype))
         z = engine.fwd(F, y.to(F.dtype))
         alpha = engine.bwd(F, z)
         quad = torch.sum(z * z)
         value = -0.5 * quad - engine.logdiag(F) - 0.5 * N * math.log(2.0 * math.pi)
         value = engine.ring.agree(torch.where(torch.isfinite(value), value, -torch.inf))
-        ctx.engine = engine
+        ctx.engine, ctx.grads = engine, grads or engine.grads
         ctx.save_for_backward(ls, s2, noise, x, engine.residual(F), alpha, quad)
         return value
 
@@ -610,15 +784,15 @@ class MeshLML(torch.autograd.Function):
     def backward(ctx, gbar):
         ls, s2, noise, x, R, alpha, quad = ctx.saved_tensors
         plan = ctx.engine.plan
-        dls, ds2, dnoise = ctx.engine.grads(R, alpha, x, ls, s2, noise)
-        if plan.S == 1:
+        dls, ds2, dnoise = ctx.grads(R, alpha, x, ls, s2, noise)
+        if ctx.engine.wide:
             ds2 = (0.5 * (quad - plan.N) - noise * dnoise) / s2
         packed = gbar * ctx.engine.ring.agree(torch.cat([dls.reshape(-1), ds2.reshape(1),
                                                          dnoise.reshape(1)]))
         M = dls.numel()
         return (packed[:M].reshape(ls.shape).to(ls.dtype),
                 packed[M].reshape(s2.shape).to(s2.dtype),
-                packed[M + 1].reshape(noise.shape).to(noise.dtype), None, None, None)
+                packed[M + 1].reshape(noise.shape).to(noise.dtype), None, None, None, None)
 
 
 def _one_device(mesh) -> torch.device:
@@ -658,6 +832,18 @@ class DistributedGP:
     #: N up to which a one-device 'cyclic' engine calibrates through the dense
     #: exact LML, romcomma_tpu's dense direct descent (``distributed.py:366``).
     DENSE_DIRECT_MAX_N: int = 21000
+    #: Rows of a strip (and of a pair tile) of the streaming gradient
+    #: (romcomma_tpu's, ``distributed.py:579``).
+    GRAD_STRIP_COLS: int = 2048
+    #: The 'upper' engine's backward: unordered pair tiles
+    #: (``grads_streaming_pairs``), or the per-strip 'vvt' sweep
+    #: (``grads_streaming``) where False (romcomma_tpu's, ``:597``).
+    GRAD_PAIR_TILES: bool = True
+    #: Bytes of three (Npad, Npad) buffers in the working dtype above which a
+    #: one-device 'cyclic' engine streams its gradient from identity-column
+    #: solves instead of holding K, K^-1 and the factor (romcomma_tpu's,
+    #: ``:601``): float32 from N ~ 32 800, float64 from N ~ 23 200.
+    GRADS_MEMORY_BUDGET_BYTES: int = 12 * 2 ** 30
 
     def __init__(self, N: int, mesh=None, block: int = 256, dtype=None,
                  dense_kernels: bool = False, engine: Optional[str] = None):
@@ -672,11 +858,11 @@ class DistributedGP:
         CYCLIC2_SINGLE_CHIP_MIN_N, else 'upper'; without, 'cyclic'.
         ``engine`` overrides it: 'cyclic' or 'cyclic2' on a mesh of any size
         or on one device (their collectives then the identity), 'upper' on
-        one device only. 'upper' is the port's one-device route (ExactLML and
-        dense float64 posteriors, in the original row order); the other two
-        hold every (Npad, Npad) object in stored order. ``block`` is the
-        engines' block size B; for 'upper' it only sets ``fits_multi``'s
-        padding."""
+        one device only. 'upper' is the port's one-device route (the
+        streaming LML of ``UpperEngine`` and dense float64 posteriors, staged
+        in the original row order); the other two hold every (Npad, Npad)
+        object in stored order. ``block`` is the engines' block size B; for
+        'upper' it sets the LML's padding to Npad rows."""
         if mesh is None:
             mesh = make_n_mesh()
         if not _is_mesh(mesh):
@@ -694,9 +880,12 @@ class DistributedGP:
         self.engine, self.mesh = engine, mesh
         self.N, self.block = int(N), int(block)
         self.dtype = _torch_dtype(FLOAT() if dtype is None else dtype)
+        self._upper = None
         if engine == 'upper':
             self.plan = self._ops = None
             self.device = compute_device() if _is_mesh(mesh) else mesh
+            self._upper = UpperEngine(plan(self.N, 1, self.block), self.device,
+                                      self.DENSE_SUPER_BLOCK)
         else:
             from romcomma_tpu_torch.parallel.cyclic_deferred import DeferredEngine
             self.plan = plan(self.N, S, self.block)
@@ -755,18 +944,60 @@ class DistributedGP:
     def lml(self, ls, s2, noise, x_dev: torch.Tensor, y_dev: torch.Tensor) -> torch.Tensor:
         """The exact LML of one output (scalar), differentiable in ls, s2 and
         noise; -inf where the factorization breaks down. On 'upper' in
-        x_dev's dtype; on 'cyclic' and 'cyclic2' on one device in float64,
+        x_dev's dtype, x_dev and y_dev in the original row order and padded
+        here, the backward the one ``grad_route`` names; on 'cyclic' and
+        'cyclic2' on one device in float64,
         the gradient in x_dev's dtype, and over several ranks in x_dev's
         dtype (``MeshLML``).
         There y_dev is one staged column (Npad, 1), and the value and its
         gradient are rank 0's on every rank."""
         ls, s2, noise = self._cast(x_dev, ls, s2, noise)
         if self.plan is None:
-            return ExactLML.apply(ls, s2, noise, x_dev, y_dev)
-        y = y_dev.reshape(self.plan.Npad, -1)
+            pl_ = self._upper.plan
+            x_dev, y_dev = _to_stored_t(pl_, x_dev), _to_stored_t(pl_, y_dev.reshape(self.N, -1))
+        y = y_dev.reshape(x_dev.shape[0], -1)
         if y.shape[1] != 1:
             raise ValueError(f'DistributedGP.lml takes one output; y_dev has {y.shape[1]}.')
-        return MeshLML.apply(ls, s2, noise, x_dev, y, self._ops)
+        return MeshLML.apply(ls, s2, noise, x_dev, y, self._upper or self._ops, self._grads())
+
+    def _itemsize(self) -> int:
+        """Bytes of the working dtype, the one definition the route choice
+        uses (romcomma_tpu's ``_itemsize``, ``distributed.py:766``)."""
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def grad_strip(self) -> Tuple[int, int]:
+        """(rows, count) of the streaming gradient's strips: romcomma_tpu's
+        policy, min(Npad, max(B, GRAD_STRIP_COLS))."""
+        pl_ = self.plan or self._upper.plan
+        strip = int(min(pl_.Npad, max(pl_.B, self.GRAD_STRIP_COLS)))
+        return strip, -(-pl_.Npad // strip)
+
+    def grad_route(self) -> str:
+        """The backward ``lml`` takes, as romcomma_tpu's ``_build_lml``
+        chooses it (``distributed.py:775-805``): 'pairs' (or 'vvt' without
+        GRAD_PAIR_TILES) on the one-device 'upper' engine, always; 'ring_pairs'
+        on 'cyclic2'; 'solves' on 'cyclic' on one device or one rank where
+        three (Npad, Npad) buffers of the working dtype pass
+        GRADS_MEMORY_BUDGET_BYTES; else 'stored' (K and K^-1 rebuilt whole)."""
+        if self.engine == 'upper':
+            return 'pairs' if self.GRAD_PAIR_TILES else 'vvt'
+        if self.engine == 'cyclic2':
+            return 'ring_pairs'
+        Npad = self.plan.Npad
+        if self.plan.S == 1 and 3 * Npad * Npad * self._itemsize() > self.GRADS_MEMORY_BUDGET_BYTES:
+            return 'solves'
+        return 'stored'
+
+    def _grads(self) -> Optional[Callable]:
+        """The streaming backward of ``grad_route``, or None for the engine's own."""
+        route, (strip, _) = self.grad_route(), self.grad_strip()
+        if route == 'pairs':
+            return grads_streaming_pairs(self._upper.plan, strip)
+        if route == 'vvt':
+            return grads_streaming(self._upper.plan, strip)
+        if route == 'solves':
+            return grads_streaming(self.plan, strip, self._ops.fwd, self._ops.bwd)
+        return None
 
     def _column(self, y_dev: torch.Tensor, l: int) -> torch.Tensor:
         """Output l of staged Y, as lml takes it."""

@@ -19,12 +19,12 @@ from __future__ import annotations
 import shutil
 import warnings
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from romcomma_tpu_torch.base.classes import Data
-from romcomma_tpu_torch.base.definitions import write_once
+from romcomma_tpu_torch.base.definitions import PeerFailed, any_rank_failed, write_once
 from romcomma_tpu_torch.data.storage import Repository, Fold
 from romcomma_tpu_torch.gsa.calibrators import (COVARIANT_ERRORS_UNSUPPORTED,
                                                 marginalize_all_kinds, marginalize_all_kinds_folds)
@@ -75,6 +75,34 @@ def _resolve_warm_start(name: str, fold: Fold, full_name: str, is_covariant: boo
             Data.copy(src_folder=fold.folder / ancestor, dst_folder=fold.folder / full_name)
             return True
     return False
+
+
+def _fold_batched(what: str, fold_parallel: Optional[bool], attempt: Callable[[], Any]) -> Any:
+    """``attempt()``, the fold-batched path, with one outcome for every rank:
+    its result, or None where the per-fold loop is to run instead. Under a
+    process group of several ranks the ranks agree on whether any of them
+    failed (``any_rank_failed``: one collective, or the barrier where a
+    failing rank announced itself, ``PeerFailed``), so they all fall back
+    together, or none does; a rank that did not fail drops its batched
+    result and runs the loop with the others, which rewrites the tree.
+    ``fold_parallel=True`` raises on every rank instead; in auto mode
+    (None) each rank warns. Without a group this is a plain try."""
+    error: Optional[Exception] = None
+    try:
+        result = attempt()
+    except Exception as caught:            # KeyboardInterrupt and SystemExit pass
+        error = caught
+    if not isinstance(error, PeerFailed) and any_rank_failed(error is not None):
+        error = error or PeerFailed('the fold-batched path failed on another rank')
+    if error is None:
+        return result
+    if fold_parallel:                      # explicitly requested: surface it
+        raise error
+    # Auto mode: fall back sequentially, but never silently: a genuine
+    # calibration bug or a failed launch must leave a trace.
+    warnings.warn(f'fold-parallel {what} failed ({type(error).__name__}: {error}); falling '
+                  f'back to the sequential fold loop.', RuntimeWarning, stacklevel=3)
+    return None
 
 
 def _gpr_fold_batched(name: str, repo: Repository, is_read: Optional[bool],
@@ -176,22 +204,15 @@ def gpr(name: str, repo: Repository, is_read: Optional[bool], is_covariant: Opti
     per-fold loop. ``None`` (default) does so when eligible and falls back to
     the sequential loop, with a RuntimeWarning naming the exception, if the
     batched path fails; ``True`` raises instead; ``False`` runs the
-    sequential loop. KeyboardInterrupt and SystemExit always pass through."""
+    sequential loop. Under a process group of several ranks the ranks take
+    that decision together (:func:`_fold_batched`). KeyboardInterrupt and
+    SystemExit always pass through."""
     if not isinstance(repo, Fold):
         names_opt: Optional[List[str]] = None
         if fold_parallel is not False and is_calibrated:
-            try:
-                names_opt = _gpr_fold_batched(name, repo, is_read, is_covariant, is_isotropic,
-                                              kernel_parameters, likelihood_variance, is_tested,
-                                              **kwargs)
-            except Exception as error:
-                if fold_parallel:       # explicitly requested: surface it
-                    raise
-                # Auto mode: fall back sequentially, but never silently: a
-                # genuine calibration bug or a failed launch must leave a trace.
-                warnings.warn(f'fold-parallel GPR failed ({type(error).__name__}: '
-                              f'{error}); falling back to the sequential fold loop.',
-                              RuntimeWarning, stacklevel=2)
+            names_opt = _fold_batched('GPR', fold_parallel, lambda: _gpr_fold_batched(
+                name, repo, is_read, is_covariant, is_isotropic, kernel_parameters,
+                likelihood_variance, is_tested, **kwargs))
         if names_opt is not None:
             names = names_opt
         else:
@@ -307,15 +328,8 @@ def gsa(name: str, repo: Repository, is_covariant: Optional[bool], is_isotropic:
     if not isinstance(repo, Fold):
         names_opt: Optional[List[Path]] = None
         if fold_parallel is not False:
-            try:
-                names_opt = _gsa_fold_batched(name, repo, is_covariant, is_isotropic, kinds, m,
-                                              is_error_calculated, **kwargs)
-            except Exception as error:
-                if fold_parallel:       # explicitly requested: surface it
-                    raise
-                warnings.warn(f'fold-parallel GSA failed ({type(error).__name__}: '
-                              f'{error}); falling back to the sequential fold loop.',
-                              RuntimeWarning, stacklevel=2)
+            names_opt = _fold_batched('GSA', fold_parallel, lambda: _gsa_fold_batched(
+                name, repo, is_covariant, is_isotropic, kinds, m, is_error_calculated, **kwargs))
         if names_opt is not None:
             names = names_opt
         else:

@@ -16,6 +16,7 @@ import torch_mesh_ranks as ranks
 from romcomma_tpu.parallel import cyclic_deferred as jax_cd
 from romcomma_tpu.parallel import distributed as jax_dist
 from romcomma_tpu_torch.base.definitions import pinned_device
+from romcomma_tpu_torch.models.gp import ExactLML
 from romcomma_tpu_torch.parallel import cyclic_deferred as cd
 from romcomma_tpu_torch.parallel import distributed as dist
 from romcomma_tpu_torch.parallel.distributed import DistributedGP
@@ -105,7 +106,8 @@ LML_RTOL, GRAD = 1e-12, dict(rtol=1e-8, atol=1e-10)
 @pytest.fixture(scope='module')
 def one_device_cyclic2():
     """The port's and romcomma_tpu's one-device 'cyclic2' LML and gradients
-    (float64) at one seeded point, and the port's ExactLML there."""
+    (float64) at one seeded point, and the port's ExactLML there (on
+    engine='upper''s staging, under the key 'upper')."""
     import jax
     import jax.numpy as jnp
     rng = np.random.default_rng(11)
@@ -121,7 +123,8 @@ def one_device_cyclic2():
                 gp._ops = cd.DeferredEngine(gp.plan, gp.mesh, super_block)
                 out['panels'] = cd.super_sizes(gp.plan, gp._ops.q)
             p = [torch.tensor(v, dtype=torch.float64, requires_grad=True) for v in point]
-            value = gp.lml(*p, *gp.stage(X, Y))
+            x, y = gp.stage(X, Y)
+            value = gp.lml(*p, x, y) if engine == 'cyclic2' else ExactLML.apply(*p, x, y)
             out[engine] = [value.item()] + [g.numpy() for g in torch.autograd.grad(value, p)]
     theirs = jax_dist.DistributedGP(VALUE_N, jax_dist.make_n_mesh(1), block=VALUE_B,
                                     dtype=np.float64, engine='cyclic2')
@@ -169,7 +172,8 @@ def test_float32_engines_factorize_in_float64(engine):
         for name in (engine, 'upper'):
             gp = DistributedGP(VALUE_N, block=VALUE_B, dtype=np.float32, engine=name)
             p = [torch.tensor(v, dtype=torch.float32, requires_grad=True) for v in point]
-            value = gp.lml(*p, *gp.stage(X, Y))
+            x, y = gp.stage(X, Y)
+            value = gp.lml(*p, x, y) if name == engine else ExactLML.apply(*p, x, y)
             grads = torch.autograd.grad(value, p)
             readings[name] = (value, grads[1].item(), grads[2].item())
         ls, s2, noise = (torch.tensor(v, dtype=torch.float32) for v in point)

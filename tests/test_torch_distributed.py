@@ -96,8 +96,9 @@ def test_lml_value_and_gradient_match(problem):
 
 
 def test_small_route_evaluates_the_same_exact_lml(problem):
-    """gp.lml_single, the small route's LML, is DistributedGP.lml's ExactLML
-    on the constrained raw parameters: the same value and gradient."""
+    """gp.lml_single, the small route's LML (ExactLML), and DistributedGP.lml
+    on 'upper' (the streaming route: the factor inverted in place, the pair
+    tiles) on the constrained raw parameters: the same value and gradient."""
     ls, s2, noise = problem['hypers']
     raw = {'raw_lengthscales': positive_inverse(torch.tensor(ls), 0.0),
            'raw_variance': positive_inverse(torch.tensor(s2, dtype=torch.float64), 0.0),
@@ -560,7 +561,7 @@ def test_measurement_entry_points_on_the_cpu(monkeypatch):
     out = cyclic2_engine.run((200,), 4, 1, on='cpu')
     row = out['200']
     assert set(row) == set(cyclic2_engine.ENGINES)
-    for name in ('cyclic2', 'cyclic'):
+    for name in ('exact', 'cyclic2', 'cyclic'):
         assert row[name]['value'] == pytest.approx(row['upper']['value'], rel=1e-4)
         assert row[name]['grad_l2'] == pytest.approx(row['upper']['grad_l2'], rel=1e-4)
     out = multi_output_gsa.run(200, 4, 3, 'error_all', on='cpu', n_chunk=64)

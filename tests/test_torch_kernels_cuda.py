@@ -19,9 +19,10 @@ from romcomma_tpu_torch.ops import gram, gram_kernels
 pytestmark = pytest.mark.cuda
 
 #: Ragged tiles, unaligned B (masked stores), M > 32 (several chunks), and the
-#: main path's shapes (TMA stores).
+#: main path's shapes (TMA stores), the streaming gradient's two among them:
+#: a pair tile and a strip's gram rows at Npad = 50176.
 SHAPES = [(37, 61, 5), (150, 150, 7), (4097, 4095, 30), (513, 1000, 70), (4096, 4096, 30),
-          (8192, 8192, 30)]
+          (8192, 8192, 30), (2048, 2048, 30), (2048, 50176, 30)]
 
 #: Forward: both sides compute |u|^2 + |v|^2 - 2 u.v in float32 from inputs
 #: whose squared norms stay below ~10, so the exponent differs by a few float32
@@ -345,7 +346,8 @@ def test_distributed_gp_matches_cpu(cuda):
 
 
 def test_distributed_gp_float32_lml_through_the_kernel(cuda):
-    """ExactLML in float32 (one unit-gram launch per value) against float64
+    """DistributedGP's 'upper' LML (the streaming route) in float32 (one
+    unit-gram launch per value) against float64
     at N=2048, M=30: the value within the first-order bound of a float32
     LML, 10 N eps32 (s2 / noise + 1); the gradient within 1e-2 of its largest
     entry, about cond(K) eps32 here (cond(K) ~ N s2 / noise ~ 2e4)."""
@@ -367,6 +369,50 @@ def test_distributed_gp_float32_lml_through_the_kernel(cuda):
     for got, want in zip(grads32, grads64):
         torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2 * want.abs().max().item())
 
+
+
+def test_upper_streaming_route_on_the_card(cuda):
+    """engine='upper' in float32 at N=5000, M=30 (Npad 5120: three strips,
+    the last clamped): one gram launch in the forward, which leaves V alone
+    of (Npad, Npad) size held, then one launch per pair tile (6) or 'vvt'
+    strip (3); against float64
+    ExactLML, as test_distributed_gp_float32_lml_through_the_kernel holds
+    ExactLML float32: the value within 10 N eps32 (s2 / noise + 1), each
+    gradient part within 1e-2 of its largest entry (cond(K) eps32 here); the
+    pair tiles against the 'vvt' strips within the same."""
+    import numpy as np
+    from romcomma_tpu_torch import north_star
+    from romcomma_tpu_torch.models.gp import ExactLML
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    X, Y = north_star.problem(5000, 30)
+    hypers = (np.full(30, 2.0), 1.0, 0.05)
+    V, slack = 5120 ** 2 * 4, 4 * 5120 * 2048 * 4
+    readings = {}
+    for dtype, route in ((np.float32, 'pairs'), (np.float32, 'vvt'), (np.float64, 'exact')):
+        dgp = DistributedGP(5000, mesh=cuda, dtype=dtype, engine='upper')
+        dgp.GRAD_PAIR_TILES = route == 'pairs'
+        x, y = dgp.stage(X, Y)
+        p = [torch.tensor(h, dtype=x.dtype, device=cuda, requires_grad=True) for h in hypers]
+        torch.cuda.synchronize()
+        held, before = torch.cuda.memory_allocated(), gram_kernels.LAUNCHES
+        value = ExactLML.apply(*p, x, y) if route == 'exact' else dgp.lml(*p, x, y)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated() - held
+        forward = gram_kernels.LAUNCHES - before
+        grads = torch.autograd.grad(value, p)
+        torch.cuda.synchronize()
+        launches = gram_kernels.LAUNCHES - before
+        readings[route] = [value.detach().double()] + [g.double() for g in grads]
+        if route != 'exact':
+            assert forward == 1 and launches == 1 + (6 if route == 'pairs' else 3)
+            assert V <= after <= V + slack, after
+    want = readings['exact']
+    assert abs(readings['pairs'][0] - want[0]).item() <= 10 * 5000 * 1.1920929e-07 * (
+        1.0 / 0.05 + 1)
+    for got, ref in ((readings['pairs'], want), (readings['vvt'], want),
+                     (readings['pairs'], readings['vvt'])):
+        for g, w in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(g, w, rtol=0.0, atol=1e-2 * w.abs().max().item())
 
 
 def test_ring_tile_in_float64_is_float32_strips_of_the_kernel(cuda):

@@ -11,7 +11,9 @@ every cell; ``graft_entry.dryrun_multichip(2)`` runs (its covariant step
 included); run.gpr's covariant pass routes as romcomma_tpu's (the
 one-device descent below the large-N threshold, writing the one-rank tree;
 the covariant mesh at it) and ``engine='upper'`` is refused by name on
-several ranks; a rank that fails stops every rank; and ``chip_smoke.py``'s phase 13b runs its rank
+several ranks; a failure of run.gpr's or run.gsa's fold-batched path on
+one rank makes every rank fall back to the per-fold loop together; a rank
+that fails stops every rank; and ``chip_smoke.py``'s phase 13b runs its rank
 body spawned over gloo. This file imports no JAX: it holds the port to
 itself, romcomma_tpu's multi-process layer having no CPU mesh of processes
 to run on."""
@@ -97,19 +99,21 @@ def two_ranks(tmp_path_factory):
     single-process trees they are held to."""
     tmp = tmp_path_factory.mktemp('two_ranks')
     names = ('multihost alone', 'multihost', 'run_gpr alone', 'run_gpr', 'covariant below alone',
-             'covariant below', 'covariant above alone', 'covariant above')
+             'covariant below', 'covariant above alone', 'covariant above', 'fallback alone',
+             'fallback')
     roots = dict(zip(names, _copies(tmp, *(name.replace(' ', '_') for name in names))))
     roots['sweep'] = str(tmp / 'sweep')
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(spawn.run, ranks.two_rank_suite, 2, roots['multihost'],
                               roots['run_gpr'], roots['sweep'], _step_inputs(), _fold_inputs(),
                               STAR, (roots['covariant below'], roots['covariant above']),
-                              timeout=400)
+                              roots['fallback'], timeout=400)
         with pinned_device(torch.device('cpu')):
             alone = {'multihost': ranks.multihost_tree(0, roots['multihost alone']),
                      'run_gpr': ranks.run_gpr(0, roots['run_gpr alone'], 50),
                      'covariant': ranks.covariant_routing(0, roots['covariant below alone'],
-                                                          roots['covariant above alone'])}
+                                                          roots['covariant above alone']),
+                     'fallback': ranks.fallback(0, roots['fallback alone'])}
         return spawned.result(), alone, roots
 
 
@@ -208,11 +212,13 @@ def test_chip_smoke_phase_13b_rank_body_on_gloo():
     hypers = (np.full(size[1], 2.0, np.float32), np.float32(1.0), np.float32(0.05))
     point = _covariant_point()
     results = chip_smoke.mesh_ranks(2, size, hypers, point, 'gloo', 120)
-    one = DistributedGP(size[0], torch.device('cpu'), dtype=np.float32, engine='upper')
+    one = chip_smoke.ExactReference(DistributedGP(size[0], torch.device('cpu'), dtype=np.float32,
+                                                  engine='upper'))
     x, y = one.stage(*north_star.problem(*size))
     at = [torch.as_tensor(h) for h in hypers]
     f32 = chip_smoke._value_and_grad(torch, one, x, y, at)
-    one64 = DistributedGP(size[0], torch.device('cpu'), dtype=np.float64, engine='upper')
+    one64 = chip_smoke.ExactReference(DistributedGP(size[0], torch.device('cpu'),
+                                                    dtype=np.float64, engine='upper'))
     x64, y64 = one64.stage(x, y)
     f64 = chip_smoke._value_and_grad(torch, one64, x64, y64, [t.double() for t in at])
     reference = chip_smoke._apart(f32, f64)
@@ -306,6 +312,26 @@ def test_covariant_run_gpr_on_two_ranks_writes_the_one_rank_tree(two_ranks):
         want, got = ranks.tree(alone, cut=alone), ranks.tree(mesh, cut=mesh)
         assert any(path.endswith('gpr.c.a/likelihood/log_marginal.csv') for path in want)
         _same_tree(want, got)
+
+
+def test_a_failure_on_one_rank_makes_every_rank_fall_back_together(two_ranks):
+    """run.gpr's and run.gsa's fold-batched path raising on rank 1 alone:
+    both ranks agree on it (rank 0 at the first barrier it reaches), warn,
+    run the per-fold loop together and finish, writing the loop's tree (the
+    per-fold loop's in one process, rank 0 writing); with fold_parallel=True
+    both raise, rank 1 its own error and rank 0 PeerFailed."""
+    results, _, roots = two_ranks
+    for rank, r in enumerate(results):
+        out = r['fallback']
+        error = 'ZeroDivisionError' if rank else 'PeerFailed'
+        assert out['gpr strict'] == out['gsa strict'] == error, (rank, out)
+        assert [w.split(' (')[0] for w in out['warnings']] == [
+            'fold-parallel GPR failed', 'fold-parallel GSA failed'], (rank, out['warnings'])
+        assert all(f'({error}:' in w for w in out['warnings']), (rank, out['warnings'])
+    alone, mesh = roots['fallback alone'], roots['fallback']
+    want, got = ranks.tree(alone, cut=alone), ranks.tree(mesh, cut=mesh)
+    assert any(path.endswith('gpr.v.a/gsa/total/S.csv') for path in want)
+    _same_tree(want, got)
 
 
 def test_a_failing_rank_stops_every_rank():

@@ -203,17 +203,19 @@ def covariant(rank: int, super_block: int) -> dict:
 
 
 def two_rank_suite(rank: int, multihost_root: str, run_gpr_root: str, sweep_root: str,
-                   step: tuple, folds: tuple, star: tuple, covariant_roots: tuple) -> dict:
+                   step: tuple, folds: tuple, star: tuple, covariant_roots: tuple,
+                   fallback_root: str) -> dict:
     """The two-rank cases in one spawn: multihost_tree, run_gpr (threshold
     50), sweep, sharded_step on a 1 x 2 mesh, folds_sharded, north_star,
-    covariant_routing, and graft_entry.dryrun_multichip(2) (its covariant
-    step included) in this group."""
+    covariant_routing, fallback, and graft_entry.dryrun_multichip(2) (its
+    covariant step included) in this group."""
     from romcomma_tpu_torch import graft_entry
     out = {'multihost': multihost_tree(rank, multihost_root),
            'run_gpr': run_gpr(rank, run_gpr_root, 50), 'sweep': sweep(rank, sweep_root),
            'step': sharded_step(rank, *step, 1), 'folds': folds_sharded(rank, *folds),
            'north_star': north_star(rank, *star),
-           'covariant': covariant_routing(rank, *covariant_roots)}
+           'covariant': covariant_routing(rank, *covariant_roots),
+           'fallback': fallback(rank, fallback_root)}
     graft_entry.dryrun_multichip(2)
     return out
 
@@ -384,6 +386,60 @@ def covariant_routing(rank: int, below_root: str, above_root: str) -> dict:
             dist.DistributedGP(10, dist.make_n_mesh(), engine='upper')
         except ValueError as error:
             out['upper'] = str(error)
+    return out
+
+
+#: fallback's run.gpr and run.gsa options: one model pass, no errors.
+FALLBACK_GPR = dict(is_read=False, is_covariant=False, is_isotropic=False, maxiter=15)
+FALLBACK_GSA = dict(is_covariant=False, is_isotropic=False, is_error_calculated=False)
+
+
+def fallback(rank: int, root: str) -> dict:
+    """user.run.gpr and run.gsa over this group with their fold-batched path
+    made to raise on rank 1 alone, at its start, while rank 0 runs on into
+    its barriers: first with fold_parallel=True (GPR), then in auto mode
+    (GPR and GSA, writing the tree), then fold_parallel=True (GSA). Returns
+    this rank's RuntimeWarnings and what each fold_parallel=True call raised.
+    With rank=0 and no process group: the per-fold loop's run of the same
+    calls (fold_parallel=False), the tree the two ranks are held to."""
+    import warnings
+    from romcomma_tpu_torch.base.definitions import in_process_group
+    from romcomma_tpu_torch.data.storage import Repository
+    from romcomma_tpu_torch.user import run
+    if not in_process_group():
+        run.gpr('gpr', Repository(root), fold_parallel=False, **FALLBACK_GPR)
+        run.gsa('gpr', Repository(root), fold_parallel=False, **FALLBACK_GSA)
+        return {}
+    original = run._gpr_fold_batched, run._gsa_fold_batched
+
+    def failing(batched):
+        def attempt(*args, **kwargs):
+            if rank == 1:
+                raise ZeroDivisionError('rank 1 fails')
+            return batched(*args, **kwargs)
+        return attempt
+
+    def raised(call) -> str:
+        try:
+            call()
+        except Exception as error:
+            return type(error).__name__
+        return ''
+
+    run._gpr_fold_batched, run._gsa_fold_batched = (failing(f) for f in original)
+    out = {}
+    try:
+        out['gpr strict'] = raised(lambda: run.gpr('gpr', Repository(root), fold_parallel=True,
+                                                   **FALLBACK_GPR))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            run.gpr('gpr', Repository(root), **FALLBACK_GPR)
+            run.gsa('gpr', Repository(root), **FALLBACK_GSA)
+        out['warnings'] = [str(w.message) for w in caught if w.category is RuntimeWarning]
+        out['gsa strict'] = raised(lambda: run.gsa('gpr', Repository(root), fold_parallel=True,
+                                                   **FALLBACK_GSA))
+    finally:
+        run._gpr_fold_batched, run._gsa_fold_batched = original
     return out
 
 
