@@ -677,14 +677,16 @@ KINDS = ('first_order', 'closed', 'total')
 def gsa_records(torch, keep_inputs=False):
     """Record, for each fold that run.gsa computes, its GSA wall-clock
     (posterior factors, calibrator set-up and every slice of every kind), the
-    calibrator's interval timings and chunk counts, and its results on the
-    host, and with keep_inputs its float64 inputs (F, K_cho, K_inv_Y, Lambda,
-    X) too, and K^-1 y among its results. The folds of a fold group, which
-    run.gsa's batched path computes in one stacked pass, carry the group's
-    size, wall-clock and timings. run.gsa is left as it is; the record wraps
-    the functions it reaches (run.marginalize_all_kinds, one fold, and
-    run.marginalize_all_kinds_folds, a group, and under both
-    calibrators.marginalize_intervals_folds), and restores them on exit."""
+    spans of its V pass and W/T sweep (base.tracing, on for the body), and
+    its results on the host, and with keep_inputs its float64 inputs (F,
+    K_cho, K_inv_Y, Lambda, X) too, and K^-1 y among its results. The folds
+    of a fold group, which run.gsa's batched path computes in one stacked
+    pass, carry the group's size, wall-clock and spans. run.gsa is left as
+    it is; the record wraps the functions it reaches
+    (run.marginalize_all_kinds, one fold, and run.marginalize_all_kinds_folds,
+    a group, and under both calibrators.marginalize_intervals_folds), and
+    restores them and the tracing mode on exit."""
+    from romcomma_tpu_torch.base import tracing
     from romcomma_tpu_torch.gsa import calibrators
     from romcomma_tpu_torch.user import run
     records = []
@@ -692,10 +694,12 @@ def gsa_records(torch, keep_inputs=False):
     intervals = calibrators.marginalize_intervals_folds
 
     def timed_intervals(cals, slices):
+        before = len(tracing.spans())
         out = intervals(cals, slices)
+        stages = {s['name']: s for s in tracing.spans()[before:]}
         for cal in cals:
             records.append({'N': cal.N, 'V0_chunk': cal._auto_n_chunk(), 'group': len(cals),
-                            'timings': dict(cal.last_interval_timings)})
+                            'stages': stages})
         return out
 
     def keep(record, gp, by_kind, extras, seconds):
@@ -725,9 +729,11 @@ def gsa_records(torch, keep_inputs=False):
         lambda gps, *a_, **k_: [marginalize(gps[0], *a_, **k_)], [gp], *a, **k)[0]
     run.marginalize_all_kinds_folds = lambda gps, *a, **k: timed(folds, gps, *a, **k)
     calibrators.marginalize_intervals_folds = timed_intervals
+    mode = tracing.mode('on')
     try:
         yield records
     finally:
+        tracing.mode(mode)
         run.marginalize_all_kinds, run.marginalize_all_kinds_folds = marginalize, folds
         calibrators.marginalize_intervals_folds = intervals
 
@@ -759,19 +765,23 @@ def check_gsa_tree(repo, model='gpr.v.a', csvs='SVTW', M_=M, L_=3):
                 require(steps.min() >= -1e-6, f'{folder}: CLOSED S decreases by {steps.min()}')
 
 
+def _stage_s(stage):
+    """A span's seconds: its device time on a card, its host time elsewhere."""
+    ms = stage['host_ms'] if stage['device_ms'] is None else stage['device_ms']
+    return ms / 1e3
+
+
 def print_gsa_records(records):
     """One line per fold, or per fold group (its folds share the line)."""
     i = 0
     while i < len(records):
         r = records[i]
-        t = r['timings']
+        v_pass, wt_sweep = r['stages']['gsa.v_pass'], r['stages']['gsa.wt_sweep']
         chunk = r['V0_chunk'] or 'N'
         who = f'fold group of {r["group"]} folds' if r['group'] > 1 else 'one fold'
         print(f'  N={r["N"]}, {who}: GSA {r["seconds"]:.3f} s (posterior factors, set-up with '
-              f'the full V in chunks of {chunk}, intervals); V pass {t["v_pass_s"]:.3f} s '
-              f'({t["v_chunks"]} chunks, loop {t["v_loop_s"]:.3f} s); W/T sweep '
-              f'{t["wt_sweep_s"]:.3f} s (prep {t["e_prep_s"]:.3f} s, {t["e_chunks"]} chunks, '
-              f'loop {t["e_loop_s"]:.3f} s, psi solve and determinants {t["e_solve_s"]:.3f} s)',
+              f'the full V in chunks of {chunk}, intervals); V pass {_stage_s(v_pass):.3f} s '
+              f'({v_pass["attrs"]["chunks"]} chunks); W/T sweep {_stage_s(wt_sweep):.3f} s',
               flush=True)
         i += r['group']
 
@@ -910,8 +920,9 @@ def _table_errors(results, reference):
 def gsa_of(inputs, shape, **meta):
     """(results, extras) of one pass over every kind's slices on the current
     device, from float64 inputs, on the host, with K^-1 y among the extras;
-    and the interval timings."""
-    from romcomma_tpu_torch.gsa import calibrators
+    and the chunk counts of its V pass and W/T sweep, by the program's own
+    rules."""
+    from romcomma_tpu_torch.gsa import calibrators, factorized_errors
     M_ = shape['M']
     slices = tuple(slice_of(m, M_) for slice_of in SLICE_KINDS.values() for m in range(M_))
     cal = calibrators.ClosedSobolWithError.from_arrays(**inputs, is_F_diagonal=True, **shape,
@@ -920,7 +931,10 @@ def gsa_of(inputs, shape, **meta):
     return ({kind: {key: v[..., i * M_:(i + 1) * M_].cpu().numpy() for key, v in out.items()}
              for i, kind in enumerate(SLICE_KINDS)},
             {'V0': cal.V[0].cpu().numpy(), 'S': cal.S.cpu().numpy(), 'T': cal.T.cpu().numpy(),
-             'K_inv_Y': inputs['K_inv_Y'].cpu().numpy()}), dict(cal.last_interval_timings)
+             'K_inv_Y': inputs['K_inv_Y'].cpu().numpy()}), {
+        'v_chunks': -(-cal.N // cal._intervals_chunk()),
+        'e_chunks': -(-cal.N // factorized_errors._chunk_size(
+            cal, len(factorized_errors._member_layout(cal))))}
 
 
 def _signs(torch, shape, seed):

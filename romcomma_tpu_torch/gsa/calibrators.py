@@ -31,6 +31,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.base.definitions import device
 from romcomma_tpu_torch.gsa.base import (Calibrator, Gaussian, diag_det, mean, rms, sos,
                                          sym_check)
@@ -347,8 +348,7 @@ class ClosedSobol(Calibrator):
         Every slice any GSA kind produces (gsa/models.py) is a single dim, a
         prefix, a suffix, or empty; exotic intervals fall back to
         :meth:`marginalize`. Returns {'V','S'} with the slice axis LAST,
-        ordered as ``slices``. Records the chunk count and loop time in
-        ``last_v_sweep_timings``."""
+        ordered as ``slices``."""
         (V,) = _intervals_pass([self], slices)
         return {'V': V, 'S': V / self.V[2][..., None]}
 
@@ -362,42 +362,40 @@ def _intervals_pass(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[int, int], .
     automatic chunk shrinks by the number of calibrators, so the device holds
     the planes of one (``marginalize_intervals_stacked``'s rule, ``:760-766``);
     an explicit meta['n_chunk'] is kept. Returns each calibrator's V (slice
-    axis last) and records the pass's chunk count and loop time in each
-    one's ``last_v_sweep_timings``."""
+    axis last). The pass is the span 'gsa.v_pass' (``base.tracing``), with
+    its ``chunks``."""
     cal = cals[0]
     specs, need = cal._interval_specs(slices, cal.M)
     l, L, N, M = cal.G.shape
     chunk = cal._intervals_chunk()
     if len(cals) > 1 and cal.meta.get('n_chunk', None) is None:
         chunk = max(64, chunk // len(cals))
-    packs = [c._intervals_pack() for c in cals]
-    zero = torch.zeros((len(cals), M, l, L, l, L), dtype=cal.G.dtype, device=cal.G.device)
-    if len(cals) == 1:
-        pack, G, g, acc = packs[0], cal.G, cal.g0KY, (zero[0],) * 3
+    with tracing.span('gsa.v_pass', on=cal.G.device, chunks=-(-N // chunk)):
+        packs = [c._intervals_pack() for c in cals]
+        zero = torch.zeros((len(cals), M, l, L, l, L), dtype=cal.G.dtype, device=cal.G.device)
+        if len(cals) == 1:
+            pack, G, g, acc = packs[0], cal.G, cal.g0KY, (zero[0],) * 3
 
-        def step(pack, acc, Gq_c, gq_c):
-            return _intervals_step(need, pack, acc, Gq_c, gq_c)
-    else:
-        pack = {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
-        G, g, acc = torch.stack([c.G for c in cals]), torch.stack([c.g0KY for c in cals]), (zero,) * 3
-        step = torch.func.vmap(lambda *args: _intervals_step(need, *args))
-    t0 = time.perf_counter()
-    mesh = getattr(cal, 'gsa_mesh', None)
-    if mesh is not None:
-        # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
-        from romcomma_tpu_torch.gsa.mesh import intervals_sweep
-        acc = intervals_sweep(mesh, range(0, N, chunk), lambda acc, start: step(
-            pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk]), acc)
-    else:
-        for start in range(0, N, chunk):
-            acc = step(pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk])
-    _synchronize(acc[0])
-    timings = {'chunks': -(-N // chunk), 'loop_s': time.perf_counter() - t0}
-    Vs = []
-    for i, (c, p) in enumerate(zip(cals, packs)):
-        c.last_v_sweep_timings = dict(timings)
-        acc_i = acc if len(cals) == 1 else tuple(a[i] for a in acc)
-        Vs.append(torch.stack(c._intervals_finalize(p, acc_i, specs, slices), dim=-1))
+            def step(pack, acc, Gq_c, gq_c):
+                return _intervals_step(need, pack, acc, Gq_c, gq_c)
+        else:
+            pack = {key: torch.stack([p[key] for p in packs]) for key in packs[0]}
+            G, g = torch.stack([c.G for c in cals]), torch.stack([c.g0KY for c in cals])
+            acc = (zero,) * 3
+            step = torch.func.vmap(lambda *args: _intervals_step(need, *args))
+        mesh = getattr(cal, 'gsa_mesh', None)
+        if mesh is not None:
+            # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
+            from romcomma_tpu_torch.gsa.mesh import intervals_sweep
+            acc = intervals_sweep(mesh, range(0, N, chunk), lambda acc, start: step(
+                pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk]), acc)
+        else:
+            for start in range(0, N, chunk):
+                acc = step(pack, acc, G[..., start:start + chunk, :], g[..., start:start + chunk])
+        Vs = []
+        for i, (c, p) in enumerate(zip(cals, packs)):
+            acc_i = acc if len(cals) == 1 else tuple(a[i] for a in acc)
+            Vs.append(torch.stack(c._intervals_finalize(p, acc_i, specs, slices), dim=-1))
     return Vs
 
 
@@ -688,10 +686,9 @@ class ClosedSobolWithError(ClosedSobol):
         factorize the same way and are computed by the chunked sweep in
         :mod:`romcomma_tpu_torch.gsa.factorized_errors`. A set of slices with
         a general one falls back to per-slice evaluation (:meth:`marginalize`),
-        as romcomma_tpu's does (calibrators.py:1039-1046). Records the split
-        of its time in ``last_interval_timings``: ``v_pass_s`` and
-        ``wt_sweep_s``, then the V sweep's ``v_chunks``/``v_loop_s`` and the
-        error sweep's ``e_prep_s``/``e_chunks``/``e_loop_s``/``e_solve_s``."""
+        as romcomma_tpu's does (calibrators.py:1039-1046). The V pass and
+        the W/T sweep are the spans 'gsa.v_pass' and 'gsa.wt_sweep'
+        (``base.tracing``)."""
         return marginalize_intervals_folds([self], slices)[0]
 
     def _calibrate(self):
@@ -877,9 +874,8 @@ def marginalize_intervals_folds(cals: 'List[ClosedSobol]', slices: 'Tuple[Tuple[
     the W/T sweep each run their chunk steps once for them all (see
     :func:`_intervals_pass`), the psi solves each against its own K_cho.
     Returns one result per calibrator, as its own ``marginalize_intervals``
-    would, and records the group's timings in each one's
-    ``last_interval_timings``. A set of slices with a general one goes
-    slice by slice, calibrator by calibrator."""
+    would. A set of slices with a general one goes slice by slice,
+    calibrator by calibrator."""
     from romcomma_tpu_torch.gsa import factorized_errors
     slices = tuple(slices)
     cal = cals[0]
@@ -903,27 +899,14 @@ def _marginalize_canonical(cals, slices, specs, intervals) -> 'List[Dict[str, to
     """The stacked pass of :func:`marginalize_intervals_folds` over canonical
     ``slices`` (classified as ``specs``): one V pass, then, for calibrators
     with errors, one W/T sweep by ``intervals`` (``factorized_errors``'
-    ``intervals_folds`` or ``intervals_stacked``)."""
-    if not isinstance(cals[0], ClosedSobolWithError):
-        return [{'V': V, 'S': V / c.V[2][..., None]}
-                for c, V in zip(cals, _intervals_pass(cals, slices))]
-    t0 = time.perf_counter()
+    ``intervals_folds`` or ``intervals_stacked``), the span 'gsa.wt_sweep'."""
     Vs = _intervals_pass(cals, slices)
-    _synchronize(Vs[0])
-    v_pass_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    errors = intervals(cals, slices, specs, Vs)
-    _synchronize(Vs[0])
-    wt_sweep_s = time.perf_counter() - t0
-    results = []
-    for c, V, error in zip(cals, Vs, errors):
-        timings = {'v_pass_s': v_pass_s}
-        timings.update({f'v_{k}': v for k, v in c.last_v_sweep_timings.items()})
-        timings['wt_sweep_s'] = wt_sweep_s
-        timings.update({f'e_{k}': v for k, v in c.last_error_sweep_timings.items()})
-        c.last_interval_timings = timings
-        results.append({'V': V, 'S': V / c.V[2][..., None]} | error)
-    return results
+    errors = [{} for _ in cals]
+    if isinstance(cals[0], ClosedSobolWithError):
+        with tracing.span('gsa.wt_sweep', on=cals[0].G.device):
+            errors = intervals(cals, slices, specs, Vs)
+    return [{'V': V, 'S': V / c.V[2][..., None]} | error
+            for c, V, error in zip(cals, Vs, errors)]
 
 
 def _stacked_specs(cals, slices) -> list:
@@ -963,8 +946,7 @@ def marginalize_intervals_error_stacked(cals: 'List[ClosedSobolWithError]',
     stacked W/T sweep (``factorized_errors.intervals_stacked``) for
     independent single-output calibrators sharing X, each output's psi
     factors then solved against its own K_cho or half solver. Canonical
-    slices only. Returns one {'V', 'S', 'W', 'T'} per calibrator and records
-    the pass's ``last_interval_timings`` in each."""
+    slices only. Returns one {'V', 'S', 'W', 'T'} per calibrator."""
     from romcomma_tpu_torch.gsa import factorized_errors
     slices = tuple(slices)
     return _marginalize_canonical(cals, slices, _stacked_specs(cals, slices),

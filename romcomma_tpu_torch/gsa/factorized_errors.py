@@ -38,12 +38,11 @@ own psi solve against its own K_cho.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Sequence
 
 import torch
 
-from romcomma_tpu_torch.gsa.calibrators import _diag_part, _set_diag, _synchronize
+from romcomma_tpu_torch.gsa.calibrators import _diag_part, _set_diag
 from romcomma_tpu_torch.ops.linalg import tri_solve
 
 
@@ -308,9 +307,7 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
     the psi factors K-solved, each against its own K_cho (reference
     calibrators.py:290-322 semantics). The automatic chunk shrinks by the
     number of calibrators, so the device holds the planes of one; an
-    explicit meta['n_chunk'] is kept. Records ``prep_s``, ``chunks``,
-    ``loop_s`` and ``solve_s`` (of them all) in each calibrator's
-    ``last_error_sweep_timings``."""
+    explicit meta['n_chunk'] is kept."""
     cal = cals[0]
     kinds = tuple(k for k in KINDS if need.get(k) or k == 'prefix')
     # Per-dim prefix COLUMNS are consumed only by CLOSED-kind slices; when
@@ -321,11 +318,7 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
     chunk = _chunk_size(cal, len(layout))
     if len(cals) > 1 and cal.meta.get('n_chunk', None) is None:
         chunk = max(64, chunk // len(cals))
-    timings = {}
-    t0 = time.perf_counter()
     Cs = [_prep(c, kinds, prefix_full) for c in cals]
-    _synchronize(Cs[0]['g'])
-    timings['prep_s'] = time.perf_counter() - t0
 
     def run(C, q: slice):
         return _run_chunk(C, layout, kinds, prefix_full, q)
@@ -338,7 +331,6 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
         def step(C, q: slice):
             return torch.func.vmap(lambda C_: run(C_, q))(C)
 
-    t0 = time.perf_counter()
     mesh = getattr(cal, 'gsa_mesh', None)
     if mesh is not None:
         # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
@@ -354,11 +346,8 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
             for k in kinds:
                 psi_parts[k].append(out[k][1])
         psi = {k: torch.cat(psi_parts[k], dim=-1) for k in kinds}
-    _synchronize(Cs[0]['g'])
-    timings.update(chunks=-(-N // chunk), loop_s=time.perf_counter() - t0)
 
     # Determinants, then the K_cho solve of the psi factors, fold by fold.
-    t0 = time.perf_counter()
     sweeps = []
     for i, (c, C) in enumerate(zip(cals, Cs)):
         quads_i, psi_i = (quads, psi) if len(cals) == 1 else (_unstack(quads, i), _unstack(psi, i))
@@ -370,10 +359,6 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
                        'psi': {k: _psi_solve(c.meta.get('psi_half_solver', c.K_cho),
                                              psi_i[k] * invd_psi[k][..., None])
                                for k in kinds}})
-    _synchronize(Cs[0]['g'])
-    timings['solve_s'] = time.perf_counter() - t0
-    for c in cals:
-        c.last_error_sweep_timings = dict(timings)
     return sweeps
 
 

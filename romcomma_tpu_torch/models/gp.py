@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.models.params import (CovariantParams, VariantParams,
                                               covariant_constrain, variant_constrain,
                                               variant_select)
@@ -85,7 +86,9 @@ class ExactLML(torch.autograd.Function):
     has the layout the GP's own x has rounds as it does alone, so a descent
     takes the same steps alone and in a batch. The value is -inf where the
     factorization breaks down, member by member, so a minimizer of -lml backs
-    off, as romcomma_tpu's does; the other members stay finite."""
+    off, as romcomma_tpu's does; the other members stay finite. A batch's
+    three stages are the spans 'exact_lml.gram', 'exact_lml.factor' and
+    'exact_lml.backward' (``base.tracing``), the last two with ``members``."""
 
     @staticmethod
     def forward(ctx, ls, s2, noise, x, y):
@@ -97,9 +100,12 @@ class ExactLML(torch.autograd.Function):
             value, chol, alpha = _lml_forward(K, y, N)
             ctx.save_for_backward(ls, s2, noise, x, K, chol, alpha)
             return value
-        K = rbf_gram_variant(x, x, torch.broadcast_to(ls, (x.shape[0], x.shape[2])), s2)
-        K.diagonal(dim1=-2, dim2=-1).add_(noise[:, None])
-        values, chols, alphas = zip(*(_lml_forward(K[b], y[b], N) for b in range(x.shape[0])))
+        B = x.shape[0]
+        with tracing.span('exact_lml.gram', on=x.device):
+            K = rbf_gram_variant(x, x, torch.broadcast_to(ls, (B, x.shape[2])), s2)
+            K.diagonal(dim1=-2, dim2=-1).add_(noise[:, None])
+        with tracing.span('exact_lml.factor', on=x.device, members=B):
+            values, chols, alphas = zip(*(_lml_forward(K[b], y[b], N) for b in range(B)))
         ctx.save_for_backward(ls, s2, noise, x, K, *chols, *alphas)
         return torch.stack(values)
 
@@ -110,8 +116,9 @@ class ExactLML(torch.autograd.Function):
             return (*(gbar * g for g in _lml_backward(ls, s2, noise, x, K, *factors)),
                     None, None)
         B = x.shape[0]
-        grads = [_lml_backward(ls[b], s2[b], noise[b], x[b], K[b], factors[b], factors[B + b])
-                 for b in range(B)]
+        with tracing.span('exact_lml.backward', on=x.device, members=B):
+            grads = [_lml_backward(ls[b], s2[b], noise[b], x[b], K[b], factors[b],
+                                   factors[B + b]) for b in range(B)]
         return (*(gbar.reshape((B,) + (1,) * (g[0].dim())) * torch.stack(g)
                   for g in zip(*grads)), None, None)
 

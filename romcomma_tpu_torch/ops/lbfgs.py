@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from scipy.optimize import minimize as sp_minimize
 
+from romcomma_tpu_torch.base import tracing
+
 #: scipy's default ftol for L-BFGS-B = 2.220446049250313e-09.
 SCIPY_FTOL = 2.220446049250313e-09
 
@@ -154,7 +156,9 @@ def minimize_lockstep(fun: Callable[[List[int], Params], torch.Tensor], starts: 
     releases them; a descent that returns leaves the batch. So each descent
     keeps its own memory, line search, stopping rule and handling of
     non-finite values, and gives the descent ``minimize`` makes on its own.
-    The fresh evaluation at the returned points is one call too. If a
+    The calling thread's wait for the live descents' points is the span
+    'lbfgs.gather' (``base.tracing``), flagged where a descent's error ends
+    it. The fresh evaluation at the returned points is one call too. If a
     descent or ``fun`` raises, every descent is stopped and the error is
     raised here; no thread is left waiting. Returns one MinimizeResult per
     start, in order."""
@@ -208,10 +212,12 @@ def minimize_lockstep(fun: Callable[[List[int], Params], torch.Tensor], starts: 
         thread.start()
     try:
         while True:
-            with lock:
+            with lock, tracing.span('lbfgs.gather'):
                 while state['error'] is None and state['live'] and len(points) < state['live']:
                     lock.wait()
-                if state['error'] is not None or not state['live']:
+                if state['error'] is not None:
+                    raise state['error']
+                if not state['live']:
                     break
                 batch = dict(sorted(points.items()))
                 points.clear()

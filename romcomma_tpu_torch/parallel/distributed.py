@@ -86,6 +86,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.base.definitions import (FLOAT, device as compute_device,
                                                  in_process_group, pinned_device)
 from romcomma_tpu_torch.models.gp import ExactLML
@@ -765,26 +766,39 @@ class MeshLML(torch.autograd.Function):
     Over several ranks (S > 1) every step runs in the engine's dtype, as
     romcomma_tpu's engines do (float32 products true float32), dLML/ds2 the
     engine's reduction of sum(Bbar o Knn), and each rank holds its (c B,
-    Npad) slab in that dtype."""
+    Npad) slab in that dtype.
+
+    Its stages are spans (``base.tracing``): 'mesh_lml.gram', '.factor',
+    '.solves' (the forward and backward solves, the log-diagonal and the
+    ranks' agreement), '.inverse' (``engine.residual``: on 'cyclic2' the
+    in-place V = U^-1) and, in the backward, '.pairs' (``grads``: on 'cyclic2'
+    the pair sweep)."""
 
     @staticmethod
     def forward(ctx, ls, s2, noise, x, y, engine, grads=None):
         N = engine.plan.N
-        F = engine.chol(engine.gram(x, ls, s2, noise, torch.float64 if engine.wide else x.dtype))
-        z = engine.fwd(F, y.to(F.dtype))
-        alpha = engine.bwd(F, z)
-        quad = torch.sum(z * z)
-        value = -0.5 * quad - engine.logdiag(F) - 0.5 * N * math.log(2.0 * math.pi)
-        value = engine.ring.agree(torch.where(torch.isfinite(value), value, -torch.inf))
+        with tracing.span('mesh_lml.gram', on=x.device):
+            K = engine.gram(x, ls, s2, noise, torch.float64 if engine.wide else x.dtype)
+        with tracing.span('mesh_lml.factor', on=x.device):
+            F = engine.chol(K)
+        with tracing.span('mesh_lml.solves', on=x.device):
+            z = engine.fwd(F, y.to(F.dtype))
+            alpha = engine.bwd(F, z)
+            quad = torch.sum(z * z)
+            value = -0.5 * quad - engine.logdiag(F) - 0.5 * N * math.log(2.0 * math.pi)
+            value = engine.ring.agree(torch.where(torch.isfinite(value), value, -torch.inf))
+        with tracing.span('mesh_lml.inverse', on=x.device):
+            R = engine.residual(F)
         ctx.engine, ctx.grads = engine, grads or engine.grads
-        ctx.save_for_backward(ls, s2, noise, x, engine.residual(F), alpha, quad)
+        ctx.save_for_backward(ls, s2, noise, x, R, alpha, quad)
         return value
 
     @staticmethod
     def backward(ctx, gbar):
         ls, s2, noise, x, R, alpha, quad = ctx.saved_tensors
         plan = ctx.engine.plan
-        dls, ds2, dnoise = ctx.grads(R, alpha, x, ls, s2, noise)
+        with tracing.span('mesh_lml.pairs', on=x.device):
+            dls, ds2, dnoise = ctx.grads(R, alpha, x, ls, s2, noise)
         if ctx.engine.wide:
             ds2 = (0.5 * (quad - plan.N) - noise * dnoise) / s2
         packed = gbar * ctx.engine.ring.agree(torch.cat([dls.reshape(-1), ds2.reshape(1),
@@ -1121,7 +1135,8 @@ class DistributedGP:
         ``error_solver='device'`` (its float32 psi solver). ``error_solver``
         'auto' and 'host' both take the float64 factor, as romcomma_tpu's host
         route does. Sets ``last_gsa_timings`` (seconds) with romcomma_tpu's
-        keys."""
+        top-level keys; the V pass and the W/T sweep inside ``intervals_s``
+        are the spans 'gsa.v_pass' and 'gsa.wt_sweep' (``base.tracing``)."""
         if gsa_dtype is not None and np.dtype(gsa_dtype) != np.float64:
             raise ValueError(f'sobol_indices gsa_dtype={np.dtype(gsa_dtype).name}: reduced GSA '
                              f'planes {TPU_TIERS}.')
@@ -1262,8 +1277,6 @@ class DistributedGP:
                                  'setup_s': t_setup, 'intervals_s': time.perf_counter() - t0,
                                  'args_fetch_s': args_fetch,
                                  'total_s': time.perf_counter() - t_start, 'outputs': outputs}
-        self.last_gsa_timings.update({f'iv_{k}': v for k, v in
-                                      cals[0].last_interval_timings.items()})
         results = []
         for out in outs:
             T_all = out['T'][1:]
@@ -1328,13 +1341,10 @@ class DistributedGP:
                    for key, value in cal.marginalize_intervals(tuple(flat)).items()}
             V_all = out['V'][0, 0].cpu().numpy()
         t_intervals = time.perf_counter() - t0
-        sweep = getattr(cal, 'last_interval_timings', None) or {
-            f'v_{k}': v for k, v in cal.last_v_sweep_timings.items()}
         self.last_gsa_timings = {'posterior_s': t_posterior, 'setup_s': t_setup,
                                  'intervals_s': t_intervals, 'import_s': t_import,
                                  'args_fetch_s': args_fetch,
                                  'total_s': time.perf_counter() - t_start}
-        self.last_gsa_timings.update({f'iv_{k}': v for k, v in sweep.items()})
         S_out = self._kinds_from_V(V_all, kinds, M, kind)
         if not error:
             return S_out

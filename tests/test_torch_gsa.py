@@ -16,6 +16,7 @@ from romcomma_tpu.gsa import base as jax_base
 from romcomma_tpu.gsa import calibrators as jax_calibrators
 from romcomma_tpu.models import gp as jax_gp
 from romcomma_tpu.models.params import variant_constrain, variant_init
+from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.base.definitions import pinned_device
 from romcomma_tpu_torch.gsa import base, calibrators
 from test_reference_fixture import SOBOL_S, SOBOL_V
@@ -108,12 +109,20 @@ def test_w_and_t_match(L, is_T_partial, n_chunk):
     slices run the forward and the reverse sweep."""
     meta = {'is_T_partial': is_T_partial} | ({} if n_chunk is None else {'n_chunk': n_chunk})
     jax_cal, cal = _pair('ClosedSobolWithError', L, **meta)
-    got, want = cal.marginalize_intervals(SLICES), jax_cal.marginalize_intervals(SLICES)
+    mode = tracing.mode('on')
+    tracing.reset()
+    try:
+        got = cal.marginalize_intervals(SLICES)
+        stages = tracing.spans()
+    finally:
+        tracing.mode(mode)
+        tracing.reset()
+    want = jax_cal.marginalize_intervals(SLICES)
     for key in ('V', 'S', 'W', 'T'):
         for i, s in enumerate(SLICES):
             _close(key, got[key][..., i], want[key][..., i], f'slice {s}')
-    assert set(cal.last_interval_timings) >= {'v_pass_s', 'wt_sweep_s', 'v_chunks',
-                                              'e_prep_s', 'e_loop_s', 'e_solve_s', 'e_chunks'}
+    assert [s['name'] for s in stages] == ['gsa.v_pass', 'gsa.wt_sweep']
+    assert stages[0]['attrs']['chunks'] == (1 if n_chunk is None else -(-N // n_chunk))
 
 
 @pytest.mark.parametrize('is_T_partial', [True, False], ids=['T-partial', 'T-full'])
