@@ -47,7 +47,13 @@ Phases (each prints its result and its time; none catches its own failure):
      spread to its GSA on the CPU from the card's float64 inputs, to its
      own chunk loops against one chunk, to run.gsa on a copy of the trained
      tree on the CPU, and to the CPU's posterior and GSA from the card's
-     float32 parameters;
+     float32 parameters; then the W/T sweep kernel (gsa/sweep_kernel.py):
+     its launches in these runs, its chunk against the plain _run_chunk at
+     each of their shapes on the card (the fold group's 2 calibrators, the
+     improper fold, the installation test's), and at the north star's
+     (SWEEP_SHAPE) its time against the plain loop's and its bound by the
+     float64 instructions the sweep needs (phases 8c, 10, 11 and 13 count
+     and check their own sweeps the same way);
   7. the covariant MOGP on phase 4's trained repository: run.gpr
      (is_covariant=True, warm-started from gpr.v.a, float32, L*N = 12288,
      12288, 24576, lengthscales frozen, so every descent runs
@@ -198,8 +204,10 @@ ROMs of phase 9, the CLIs of phases 11 and 12 and the mesh engines' and
 the covariant mesh's calibrates of phase 13, each counted from 0 just
 before it runs, and the value+grads of phase 8e's streaming routes, and,
 as a path of the same kernel, its batched launches among them (phases 4,
-8b, 11 and 12). Exits non-zero, printing no result, where
-there is no CUDA device or no checkout around the script.
+8b, 11 and 12); then the W/T sweep kernel's launches in the GSA runs of
+phases 6, 8c, 10, 11 and 13 and its time at the north star's shape. Exits
+non-zero, printing no result, where there is no CUDA device or no checkout
+around the script.
 """
 
 from __future__ import annotations
@@ -803,7 +811,8 @@ def gsa_main_path(torch, user, gram_kernels, repo):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'run.gsa: {seconds:.2f} s for folds {list(repo.folds)}, names {[str(n) for n in names]}; '
           f'peak device memory {peak:.2f} GiB; unit-gram kernel launches {gram_kernels.LAUNCHES} '
-          f'(the GSA runs in float64 and has no kernel of its own)', flush=True)
+          f'(the GSA runs in float64: its one kernel is the W/T sweep\'s, counted below)',
+          flush=True)
     print_gsa_records(records)
     require(len(records) == len(repo.folds) and all('results' in r for r in records), records)
     require([r['group'] for r in records] == [K, K, 1],
@@ -874,6 +883,205 @@ def profile_stacked_gsa(torch, repo):
               f'device busy {busy:.3f} s, idle share {1 - busy / profiled:.3f}, {launches} kernel '
               f'launches', flush=True)
     MAIN_PATH['stacked_gsa'] = readings
+
+
+#: The W/T sweep kernel's timed shape, the north star's (the benchmark's
+#: north_star.gsa cell): one ARD-RBF output, N rows, M inputs, T partial,
+#: first-order and total kinds, so one reverse sweep that emits both and the
+#: prefix-last column.
+SWEEP_SHAPE = (20000, 30)
+#: The H100 SXM's float64 instruction rate outside the tensor cores: 132 SMs
+#: x 64 FP64 lanes x 1.98 GHz (NVIDIA data sheet: 33.5 TFLOP/s, an FMA as 2).
+F64_INSTRUCTIONS_PER_S = 132 * 64 * 1.98e9
+#: PTX's float64 arithmetic instructions, as counted in a compiled kernel.
+F64_OPS = ('fma.rn.f64', 'add.f64', 'add.rn.f64', 'sub.f64', 'sub.rn.f64', 'mul.f64',
+           'mul.rn.f64', 'neg.f64')
+
+
+def f64_counts(ptx: str) -> dict:
+    """Each float64 arithmetic instruction's count in ``ptx`` (static)."""
+    import re
+    counts = {op: len(re.findall(rf'\b{re.escape(op)}\b', ptx)) for op in F64_OPS}
+    return {op: n for op, n in counts.items() if n}
+
+
+def exp_f64_counts(torch) -> dict:
+    """f64_counts of the PTX of one libdevice exp, the sweep kernel's: a
+    kernel that exps one element a thread, both paths of its range check
+    counted. Triton is bound here as sweep_kernel binds it."""
+    global tl, libdevice
+    import triton
+    import triton.language as tl
+    from triton.language.extra import libdevice
+
+    @triton.jit
+    def exp_kernel(X, Y, BLOCK: tl.constexpr):
+        offsets = tl.arange(0, BLOCK)
+        tl.store(Y + offsets, libdevice.exp(tl.load(X + offsets)))
+
+    x = torch.zeros(128, dtype=torch.float64, device=CARD)
+    handle = exp_kernel[(1,)](x, torch.empty_like(x), BLOCK=128, num_warps=4)
+    return f64_counts(handle.asm['ptx'])
+
+
+@contextmanager
+def sweep_launches(sweep_kernel):
+    """Record each sweep_kernel.sweep call's planes' shape, columns and
+    passes in the body: what sweep_instructions counts."""
+    calls, original = [], sweep_kernel.sweep
+
+    def recorded(planes, col0, ncols, passes, psi_L=0):
+        calls.append((tuple(planes['A'].shape), ncols, tuple(passes)))
+        return original(planes, col0, ncols, passes, psi_L)
+
+    sweep_kernel.sweep = recorded
+    try:
+        yield calls
+    finally:
+        sweep_kernel.sweep = original
+
+
+def sweep_instructions(calls, exp: int) -> float:
+    """Float64 instructions that the sweeps ``calls`` (sweep_launches) need
+    by their own operations, not the kernel's code: per row, column and dim
+    of each plane and pass a difference, a square and a running sum, then per
+    emitted kind an offset (members) or a negation (psi), one exp of ``exp``
+    instructions and a weighted add; per row and column of each plane, a
+    last emission's offset, exp and add once."""
+    total = 0.0
+    for (B, P, M_, N_), ncols, passes in calls:
+        for _, single, acc, last in passes:
+            emitted = (single is not None) + (acc is not None)
+            total += B * P * N_ * ncols * (M_ * (3 + emitted * (exp + 2)) + last * (exp + 2))
+    return total
+
+
+def sweep_calibrator(torch, N_, M_):
+    """The north star's float64 ClosedSobolWithError on the card, at ls 2,
+    s2 1, noise 0.05 (the benchmark's north_star.gsa point), T partial."""
+    import numpy as np
+    from romcomma_tpu_torch.gsa import calibrators
+    from romcomma_tpu_torch.models import gp, params
+    rng = np.random.default_rng(SEED)
+    X = rng.standard_normal((N_, M_))
+    Y = np.sin(X[:, :1]) + 0.5 * X[:, 1:2] ** 2 + 0.1 * rng.standard_normal((N_, 1))
+    raw = params.variant_init(np.ones(1), np.full((1, M_), 2.0), np.full(1, 0.05))
+    x, y = (torch.tensor(a, dtype=torch.float64, device=CARD) for a in (X, Y))
+    K_cho, K_inv_Y = gp.posterior_factors_variant(raw, x, y)
+    c = params.variant_constrain(raw)
+    return calibrators.ClosedSobolWithError.from_arrays(
+        F=c['variance'][None, :], K_cho=K_cho, K_inv_Y=K_inv_Y, Lambda=c['lengthscales'], X=x,
+        is_F_diagonal=True, L=1, M=M_, N=N_, is_T_partial=True)
+
+
+@contextmanager
+def sweep_records(torch, label):
+    """Count the W/T sweep kernel's launches in the body (from 0, as
+    gram_kernels.LAUNCHES is counted), and keep, for each shape of the
+    error_scan_folds calls in it that take the kernel (calibrators, L, M, N,
+    T partial, the kinds needed), its first call's calibrators and need, for
+    check_sweep_calls. On exit, prints the count and requires a launch."""
+    from romcomma_tpu_torch.gsa import factorized_errors, sweep_kernel
+    record, scan = {'calls': {}}, factorized_errors.error_scan_folds
+
+    def recorded(cals, need):
+        cal = cals[0]
+        if sweep_kernel.route(cal.G.device, cal.G.dtype) == 'kernel':
+            key = (len(cals), cal.G.shape[0], cal.M, cal.N, cal.meta['is_T_partial'],
+                   tuple(k for k in factorized_errors.KINDS if need.get(k)))
+            record['calls'].setdefault(key, (list(cals), dict(need)))
+        return scan(cals, need)
+
+    sweep_kernel.LAUNCHES = 0
+    factorized_errors.error_scan_folds = recorded
+    try:
+        yield record
+    finally:
+        factorized_errors.error_scan_folds = scan
+    record['launches'] = sweep_kernel.LAUNCHES
+    print(f'{label}: W/T sweep kernel launches {record["launches"]}, for '
+          f'{len(record["calls"])} shapes on the card', flush=True)
+    require(record['launches'] > 0 and record['calls'], f'{label}: no W/T sweep on the kernel')
+
+
+def check_sweep_calls(torch, calls, label) -> float:
+    """The kernel's chunk against the plain _run_chunk of the same
+    calibrators, float64 on the card, at each recorded shape (sweep_records):
+    the plain sweep's first and last chunks, every member quad and psi column
+    within SCALE_RTOL of its scale (the same sum of the terms' absolute
+    values). Returns the worst share."""
+    sys.path.insert(0, str(ROOT / 'tests'))
+    import torch_sweep_support as support
+    worst = 0.0
+    for (B, L_, M_, N_, partial, kinds), (cals, need) in calls.items():
+        chunk = support.plain_chunk(cals, need)
+        here = 0.0
+        for q in (slice(0, chunk), slice(N_ - chunk, N_)):
+            parts = dict(support.shares(*support.chunks_of(cals, need, q)))
+            here = max(here, *parts.values())
+        print(f'  {label}: {B} calibrator(s), L={L_} M={M_} N={N_}, T '
+              f'{"partial" if partial else "full"}, kinds {"+".join(kinds) or "prefix-last"}: '
+              f'the kernel\'s first and last {chunk}-column chunks within {here:.2e} of their '
+              f'scale of the plain chunk\'s (limit {support.SCALE_RTOL})', flush=True)
+        worst = max(worst, here)
+    require(worst <= support.SCALE_RTOL, f'{label}: the W/T sweep kernel is {worst:.3e} of its '
+                                         f'scale off the plain chunk')
+    return worst
+
+
+def swept(torch, label, fn, *args):
+    """fn(*args) under sweep_records, then check_sweep_calls at its shapes:
+    (fn's result, {'launches', 'worst'})."""
+    with sweep_records(torch, label) as record:
+        out = fn(*args)
+    return out, {'launches': record['launches'],
+                 'worst': check_sweep_calls(torch, record['calls'], label)}
+
+
+def sweep_kernel_phase(torch) -> dict:
+    """Phase 6: the W/T sweep kernel at the north star's shape (SWEEP_SHAPE):
+    its chunk against the plain one (check_sweep_calls); one error_scan's
+    sweep on the kernel (all N columns, one chunk) against the plain loop
+    over the plain chunks, and the kernel's bound by the float64
+    instructions the sweep needs (sweep_instructions) at
+    F64_INSTRUCTIONS_PER_S. Returns the kernels line's fields."""
+    from romcomma_tpu_torch.gsa import factorized_errors as fe, sweep_kernel
+    N_, M_ = SWEEP_SHAPE
+    cal = sweep_calibrator(torch, N_, M_)
+    need = {'single': True, 'suffix': True}
+    key = (1, 1, M_, N_, True, ('single', 'suffix'))
+    worst = check_sweep_calls(torch, {key: ([cal], need)}, 'the north star')
+    kinds = tuple(k for k in fe.KINDS if need.get(k) or k == 'prefix')
+    layout = fe._member_layout(cal)
+    C = fe._prep(cal, kinds, False)
+    K_ = fe._pack([C], layout, kinds, False)
+    sys.path.insert(0, str(ROOT / 'tests'))
+    import torch_sweep_support as support
+    chunk = support.plain_chunk([cal], need)
+
+    def kernel():
+        fe._run_chunk_kernel(K_, layout, kinds, False, slice(0, N_))
+
+    def plain():
+        for start in range(0, N_, chunk):
+            fe._run_chunk(C, layout, kinds, False, slice(start, start + chunk))
+
+    with sweep_launches(sweep_kernel) as calls:
+        kernel()
+    exp_counts = exp_f64_counts(torch)
+    exp = sum(exp_counts.values())
+    instructions = sweep_instructions(calls, exp)
+    bound_ms = instructions / F64_INSTRUCTIONS_PER_S * 1e3
+    (kernel_ms,) = spread_ms(torch, [kernel], samples=5, calls=1, warmup=1)
+    (plain_ms,) = spread_ms(torch, [plain], samples=2, calls=1, warmup=1)
+    print(f'N={N_} M={M_} L=1, T partial, first-order and total (one reverse sweep): the '
+          f'kernel\'s sweep {kernel_ms[1]:.2f} ms (min {kernel_ms[0]:.2f}, max {kernel_ms[2]:.2f}, '
+          f'{len(calls)} launches) against the plain loop over {-(-N_ // chunk)} chunks of '
+          f'{chunk} {plain_ms[1]:.2f} ms; bound {bound_ms:.2f} ms ({instructions:.4g} float64 '
+          f'instructions, libdevice exp {exp} each: {exp_counts}; at '
+          f'{F64_INSTRUCTIONS_PER_S:.4g}/s): share {bound_ms / kernel_ms[1]:.3f}', flush=True)
+    return {'ms': kernel_ms[1], 'plain_ms': plain_ms[1], 'bound_ms': bound_ms,
+            'bound_by': 'float64 instructions', 'max_share_of_scale': worst}
 
 
 #: The card's GSA is held to the CPU's within this many times the spread
@@ -3610,9 +3818,15 @@ def main() -> int:
     profile_value_and_grad(torch)
     print(f'phase 5: {time.perf_counter() - t:.2f} s', flush=True)
 
-    t = phase(f'6. GSA on the card: run.gsa, all kinds, errors, N={N} M={M} L=3, float64')
-    gsa_main_path(torch, user, gram_kernels, repo)
-    gsa_card_against_cpu(torch, user)
+    t = phase(f'6. GSA on the card: run.gsa, all kinds, errors, N={N} M={M} L=3, float64; the '
+              f'W/T sweep kernel at its shapes and at the north star\'s')
+
+    def gsa_phase():
+        gsa_main_path(torch, user, gram_kernels, repo)
+        gsa_card_against_cpu(torch, user)
+
+    _, sweeps = swept(torch, 'phase 6', gsa_phase)
+    sweep = sweep_kernel_phase(torch)
     print(f'phase 6: {time.perf_counter() - t:.2f} s', flush=True)
 
     t = phase(f'7. covariant MOGP: run.gpr (is_covariant=True, lengthscales frozen) on phase 4\'s '
@@ -3633,7 +3847,7 @@ def main() -> int:
     north_star_launches = north_star_phase(torch, gram_kernels)
     large_launches, large_seconds, large_worst, exact_worst = large_route_phase(
         torch, user, gram_kernels)
-    distributed_card_against_cpu(torch)
+    _, sweeps_8c = swept(torch, 'phase 8c', distributed_card_against_cpu, torch)
     t_large = time.perf_counter()
     large_star_launches, strip_err = north_star_large_phase(torch, gram_kernels)
     t_stream = time.perf_counter()
@@ -3656,12 +3870,13 @@ def main() -> int:
 
     t = phase(f'10. the sequential loop: run.gpr and run.gsa with fold_parallel=False on a copy '
               f'of phase 4\'s sampled repository, beside phases 4 and 6')
-    sequential_phase(torch, user, gram_kernels, repo)
+    _, sweeps_10 = swept(torch, 'phase 10', sequential_phase, torch, user, gram_kernels, repo)
     print(f'phase 10: {time.perf_counter() - t:.2f} s', flush=True)
 
     t = phase(f'11. csv_script -r -a on a user CSV (OAKLEY2004, N={CSV_N}, M={CSV_M}, L=3): '
               f'K={CSV_K} folds in lockstep, the improper fold, GSA with errors; float32')
-    csv_launches, csv_batched, csv_seconds = csv_phase(torch, user, gram_kernels)
+    (csv_launches, csv_batched, csv_seconds), sweeps_11 = swept(torch, 'phase 11', csv_phase,
+                                                                torch, user, gram_kernels)
     print(f'phase 11: {time.perf_counter() - t:.2f} s (csv_script {csv_seconds:.2f} s)', flush=True)
 
     t = phase(f'12. benchmark_script {" ".join(SWEEP_ARGV)}: sweep cell 325 (ALL, L={SWEEP_L}, '
@@ -3674,8 +3889,8 @@ def main() -> int:
               f'\'cyclic2\' on an NCCL group of 1 rank, N={NORTH_STAR[0]} M={NORTH_STAR[1]}, '
               f'float32; the covariant mesh at L*N={3 * N}; graft_entry.dryrun_multichip(1); '
               f'several ranks where there are cards')
-    mesh_launches, mesh_tiles, mesh_ref, point, covariant_ref = mesh_phase(torch, gram_kernels,
-                                                                           repo)
+    (mesh_launches, mesh_tiles, mesh_ref, point, covariant_ref), sweeps_13 = swept(
+        torch, 'phase 13', mesh_phase, torch, gram_kernels, repo)
     mesh_ranks_phase(torch, mesh_ref, upper_hypers(), point, covariant_ref)
     print(f'phase 13: {time.perf_counter() - t:.2f} s', flush=True)
 
@@ -3700,7 +3915,17 @@ def main() -> int:
                      + csv_batched + sweep_batched),
         'max_abs_err': batch_err,
         'ms': batch_ms, 'plain_ms': batch_plain_ms, 'bound_ms': batch_bound_ms,
-        'bound_by': batch_bound_by, 'library_ms': None}]}))
+        'bound_by': batch_bound_by, 'library_ms': None}, {
+        'name': 'sweep', 'route': 'triton',
+        'source': 'romcomma_tpu_torch/gsa/sweep_kernel.py',
+        'replaces': None,
+        'launches': sum(r['launches'] for r in (sweeps, sweeps_8c, sweeps_10, sweeps_11,
+                                                 sweeps_13)),
+        'max_share_of_scale': max(sweep['max_share_of_scale'],
+                                  *(r['worst'] for r in (sweeps, sweeps_8c, sweeps_10, sweeps_11,
+                                                         sweeps_13))),
+        'ms': sweep['ms'], 'plain_ms': sweep['plain_ms'], 'bound_ms': sweep['bound_ms'],
+        'bound_by': sweep['bound_by'], 'library_ms': None}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),
                                              'count': torch.cuda.device_count()}}))

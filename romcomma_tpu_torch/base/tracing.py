@@ -4,9 +4,9 @@
         ...
 
 A span records its name, its attributes (a count that belongs to the span is
-one of them, ``members=B``: there are no counters here, and
-``ops.gram_kernels.LAUNCHES`` stays the port's only one), the span open
-around it in the same thread (``parent``, by ``id``), its thread, its host
+one of them, ``members=B``: there are no counters here; the kernels' launch
+counts are ``ops.gram_kernels.LAUNCHES`` and ``gsa.sweep_kernel.LAUNCHES``),
+the span open around it in the same thread (``parent``, by ``id``), its thread, its host
 start and end (``time.perf_counter_ns``, and ``host_ms``), and ``error``,
 whether it exited by an exception. On a CUDA device (``on``) it also records
 a pair of timing events on the current stream, at entry and at exit; their

@@ -33,6 +33,7 @@ import torch
 
 from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.base.definitions import device
+from romcomma_tpu_torch.gsa import sweep_kernel
 from romcomma_tpu_torch.gsa.base import (Calibrator, Gaussian, diag_det, mean, rms, sos,
                                          sym_check)
 from romcomma_tpu_torch.ops.linalg import tri_solve
@@ -899,12 +900,16 @@ def _marginalize_canonical(cals, slices, specs, intervals) -> 'List[Dict[str, to
     """The stacked pass of :func:`marginalize_intervals_folds` over canonical
     ``slices`` (classified as ``specs``): one V pass, then, for calibrators
     with errors, one W/T sweep by ``intervals`` (``factorized_errors``'
-    ``intervals_folds`` or ``intervals_stacked``), the span 'gsa.wt_sweep'."""
+    ``intervals_folds`` or ``intervals_stacked``), the span 'gsa.wt_sweep'
+    with the fused kernel's ``launches`` inside it."""
     Vs = _intervals_pass(cals, slices)
     errors = [{} for _ in cals]
     if isinstance(cals[0], ClosedSobolWithError):
-        with tracing.span('gsa.wt_sweep', on=cals[0].G.device):
+        with tracing.span('gsa.wt_sweep', on=cals[0].G.device) as record:
+            launches = sweep_kernel.LAUNCHES
             errors = intervals(cals, slices, specs, Vs)
+            if record is not None:
+                record['attrs']['launches'] = sweep_kernel.LAUNCHES - launches
     return [{'V': V, 'S': V / c.V[2][..., None]} | error
             for c, V, error in zip(cals, Vs, errors)]
 

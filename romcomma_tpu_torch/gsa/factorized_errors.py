@@ -28,12 +28,15 @@ integrals vanish identically: W = 0, T = 0.
 
 Only the diagonal-F case exists here: ``ClosedSobolWithError._calibrate``
 rejects non-diagonal F (matching the reference's instability note). The
-sweep runs on one device in float64, with the chunk loop and the sweeps over
-dims as Python loops of torch ops. Several calibrators of one shape (the
-equal-shape folds of a repository) sweep together: ``torch.func.vmap`` gives
-each chunk step a leading calibrator axis, so one step's ops run once for
-them all, as romcomma_tpu vmaps its whole GSA over the folds; each keeps its
-own psi solve against its own K_cho.
+sweep runs on one device in float64. On the CPU a chunk is ``_run_chunk``,
+the sweeps over dims as Python loops of torch ops; on a CUDA device it is
+the fused kernel of :mod:`romcomma_tpu_torch.gsa.sweep_kernel`, whose planes
+never leave the chip (``_run_chunk`` stays its oracle). Several calibrators
+of one shape (the equal-shape folds of a repository, a model's outputs)
+sweep together: on the CPU ``torch.func.vmap`` gives each chunk step a
+leading calibrator axis, on a card the kernel takes that axis itself, so one
+step runs once for them all, as romcomma_tpu vmaps its whole GSA over the
+folds; each keeps its own psi solve against its own K_cho.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from romcomma_tpu_torch.gsa import sweep_kernel
 from romcomma_tpu_torch.gsa.calibrators import _diag_part, _set_diag
 from romcomma_tpu_torch.ops.linalg import tri_solve
 
@@ -116,17 +120,30 @@ def _member_arrays(cal) -> List[Dict[str, torch.Tensor]]:
     return arrays
 
 
-def _chunk_size(cal, n_members: int) -> int:
-    """q-axis chunk size: ~3 live (N, L, L, chunk) planes per member plus the
-    psi plane, exp temporaries included. meta['n_chunk'] overrides (0 =
-    unchunked, the V-pass convention)."""
+def _chunk_size(cal, n_members: int, n_cals: int = 1) -> int:
+    """q-axis chunk size for ``n_cals`` calibrators swept together.
+    meta['n_chunk'] overrides (0 = unchunked, the V-pass convention). The
+    plain sweep holds ~3 live (N, L, L, chunk) planes per member plus the psi
+    plane, exp temporaries included, and shrinks by the number of calibrators,
+    so the device holds the planes of one. The kernel holds no plane, only
+    its partial sums (``sweep_kernel.column_bytes``), so its chunk is every
+    column that fits the budget, and on a mesh at most a rank's share."""
     explicit = cal.meta.get('n_chunk', None)
     if explicit is not None:
         return int(explicit) if explicit else cal.N
     L = cal.G.shape[0]
+    if sweep_kernel.route(cal.G.device, cal.G.dtype) == 'kernel':
+        per_col = sweep_kernel.column_bytes(n_cals, (n_members + 1) * L * L, len(KINDS), cal.M)
+        chunk = cal.V_MEMORY_BUDGET_BYTES // per_col // sweep_kernel.BLOCK_COLS
+        chunk = max(1, chunk) * sweep_kernel.BLOCK_COLS
+        mesh = getattr(cal, 'gsa_mesh', None)
+        if mesh is not None:
+            chunk = min(chunk, -(-cal.N // mesh.size()))
+        return int(min(cal.N, chunk))
     budget = cal.V_MEMORY_BUDGET_BYTES // cal.X.element_size()
     per_col = cal.N * L * L * 3 * (n_members + 1)
-    return int(min(cal.N, max(64, budget // max(per_col, 1))))
+    chunk = int(min(cal.N, max(64, budget // max(per_col, 1))))
+    return max(64, chunk // n_cals) if n_cals > 1 else chunk
 
 
 # --------------------------------------------------------------------------- #
@@ -272,6 +289,100 @@ def _run_chunk(C, layout, kinds, prefix_full: bool, q: slice) -> Dict[str, tuple
     return out
 
 
+def _planes(arrays: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-dim (M, j, k, N) arrays, one per plane group -> (sum of j k, M,
+    N): one row of N per plane and dim, as the kernel reads them."""
+    return torch.cat([torch.movedim(t, 0, 2).reshape(-1, t.shape[0], t.shape[-1])
+                      for t in arrays])
+
+
+def _pack(Cs: Sequence, layout, kinds, prefix_full: bool) -> Dict[str, Any]:
+    """The kernel's inputs for the calibrators' preps ``Cs``, with a leading
+    calibrator axis: per-plane row-side A and column-side Q exactly as
+    ``_run_chunk``'s ``step`` forms them (member r's planes (j, k), k of
+    size 1 where it reduces to 'j', then psi's (l, i)), the members'
+    exponent offsets U and row weights W (g on the member's p axis), psi's
+    row weights (gw per kind), and the prefix-last columns; the members'
+    q-side weights and g0 stay with the host."""
+    N = Cs[0]['Gm'].shape[2]
+    scan = tuple(k for k in kinds if k != 'prefix' or prefix_full)
+
+    def each(f):
+        return torch.stack([f(C) for C in Cs])
+
+    def g_on_p(C, spec, a):
+        g = C['g'][:, None, :] if spec['p'] == 'j' else C['g'][None, :, :]
+        return g.expand(a.shape).reshape(-1, N)
+
+    members = {
+        'A': each(lambda C: _planes(C['a_sc'])),
+        'Q': each(lambda C: _planes([C['Gm'][:, :, None, :] * s[..., None] for s in C['s']])),
+        'W': each(lambda C: torch.cat([g_on_p(C, spec, a[0])
+                                       for spec, a in zip(layout, C['a_sc'])]))}
+    psi = {
+        'A': each(lambda C: _planes([C['Gm'][:, :, None, :] * C['s_psi'][..., None]])),
+        'Q': each(lambda C: _planes([(C['phi_m'][:, :, None, None] * C['Gm'][:, None, :, :])
+                                     * C['s_psi'][..., None]])),
+        'W': each(lambda C: torch.stack([C['gw'][k] for k in scan]) if scan
+                  else C['gw']['prefix'][:0])}
+    # An offset broadcasts over the plane axes it lacks (MIXED's j), as in
+    # _run_chunk's `eup - E`.
+    if scan:
+        members['U'] = each(lambda C: torch.stack([_planes([
+            e.expand(e.shape[:1] + a.shape[1:]) for e, a in zip(C['eup'][k], C['a_sc'])])
+            for k in scan]))
+    if not prefix_full:
+        members['UL'] = each(lambda C: torch.cat([e[-1].expand(a.shape[1:]).reshape(-1, N)
+                                                  for e, a in zip(C['eup']['prefix'],
+                                                                  C['a_sc'])]))
+        psi['WL'] = each(lambda C: C['gw_prefix_last'])
+    return {'members': members, 'psi': psi, 'scan': scan,
+            'shapes': [tuple(a.shape[1:3]) for a in Cs[0]['a_sc']],
+            'gw': {k: each(lambda C: C['gw'][k]) for k in kinds}, 'g0q': each(lambda C: C['g0q'])}
+
+
+def _run_chunk_kernel(K, layout, kinds, prefix_full: bool, q: slice) -> Dict[str, tuple]:
+    """``_run_chunk`` of every calibrator packed in ``K`` (:func:`_pack`) at
+    once, on the fused kernel: the same results with a leading calibrator
+    axis. The kernel gives each plane's row sums by column; the members'
+    q-side weights and the psi columns' g0 are applied here, as
+    ``member_quad`` and ``psi_quad`` apply them."""
+    scan = K['scan']
+    B, _, M, N = K['members']['A'].shape
+    L = K['g0q'].shape[1]
+    start = min(q.start or 0, N)
+    stop = min(N if q.stop is None else q.stop, N)
+    cols, c = slice(start, stop), stop - start
+    if 'suffix' in kinds and not prefix_full:
+        # Single-sweep mode, as in _run_chunk: the reverse sweep emits
+        # 'single' and 'suffix', its final carry the prefix-last column.
+        passes = [(True, 'single', 'suffix', True)]
+    else:
+        passes = [(False, 'single', 'prefix' if prefix_full else None, not prefix_full)]
+        if 'suffix' in kinds:
+            passes.append((True, None, 'suffix', False))
+    passes = [(rev, scan.index(s) if s in scan else None, scan.index(a) if a in scan else None,
+               last) for rev, s, a, last in passes]
+    col_m, last_m = sweep_kernel.sweep(K['members'], start, c, passes)
+    col_p, last_p = sweep_kernel.sweep(K['psi'], start, c, passes, psi_L=L)
+    g0q = K['g0q'][:, None, None, :, cols]                    # (B, 1, 1, i, c)
+
+    def quads(col, gq):
+        """Member columns (B, Mk, planes, c) against q-side weights (B, Mk,
+        j, c): each member's quads (B, Mk, j[, k])."""
+        parts = torch.split(col, [j * k for j, k in K['shapes']], dim=2)
+        return tuple(torch.einsum(f"bmjkC, bmjC -> bm{spec['out']}",
+                                  part.reshape(part.shape[:2] + shape + part.shape[-1:]), gq)
+                     for part, shape, spec in zip(parts, K['shapes'], layout))
+
+    out = {k: (quads(col_m[:, i], K['gw'][k][..., cols]),
+               col_p[:, i].reshape(B, M, L, L, c) * g0q) for i, k in enumerate(scan)}
+    if not prefix_full:
+        out['prefix'] = (quads(last_m[:, None], K['gw']['prefix'][:, M - 1:, :, cols]),
+                         last_p.reshape(B, 1, L, L, c) * g0q)
+    return out
+
+
 def _stack(trees: Sequence):
     """Leaf-wise torch.stack of equal nested dicts/tuples of tensors."""
     first = trees[0]
@@ -298,16 +409,17 @@ def error_scan(cal, need: Dict[str, bool]) -> Dict[str, Any]:
 
 def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, Any]]:
     """Run the factorized error sweep of one calibrator, or of several of one
-    shape and meta together (each chunk step vmapped over them).
+    shape and meta together (each chunk step batched over them: vmapped on
+    the CPU, the kernel's calibrator axis on a card).
 
     ``need`` flags which kinds to emit ('single'/'suffix'; 'prefix' always
     runs: its (0, M) column is the full-interval psi factor and MIXED-W
     source). Returns per calibrator {'layout', 'quads': {kind: [(M, j[, k])
     per member]}, 'psi': {kind: (M, l, i, N)}} with determinants applied and
     the psi factors K-solved, each against its own K_cho (reference
-    calibrators.py:290-322 semantics). The automatic chunk shrinks by the
-    number of calibrators, so the device holds the planes of one; an
-    explicit meta['n_chunk'] is kept."""
+    calibrators.py:290-322 semantics). The automatic chunk is
+    :func:`_chunk_size`'s; an explicit meta['n_chunk'] is kept. A CUDA
+    float64 sweep runs on the fused kernel (``sweep_kernel.route``)."""
     cal = cals[0]
     kinds = tuple(k for k in KINDS if need.get(k) or k == 'prefix')
     # Per-dim prefix COLUMNS are consumed only by CLOSED-kind slices; when
@@ -315,31 +427,33 @@ def error_scan_folds(cals: Sequence, need: Dict[str, bool]) -> List[Dict[str, An
     prefix_full = bool(need.get('prefix'))
     layout = _member_layout(cal)
     N = cal.N
-    chunk = _chunk_size(cal, len(layout))
-    if len(cals) > 1 and cal.meta.get('n_chunk', None) is None:
-        chunk = max(64, chunk // len(cals))
+    chunk = _chunk_size(cal, len(layout), len(cals))
     Cs = [_prep(c, kinds, prefix_full) for c in cals]
 
-    def run(C, q: slice):
-        return _run_chunk(C, layout, kinds, prefix_full, q)
+    if sweep_kernel.route(cal.G.device, cal.G.dtype) == 'kernel':
+        K = _pack(Cs, layout, kinds, prefix_full)
 
-    if len(cals) == 1:
-        C, step = Cs[0], run
+        def step(q: slice):
+            out = _run_chunk_kernel(K, layout, kinds, prefix_full, q)
+            return out if len(cals) > 1 else _unstack(out, 0)
+    elif len(cals) == 1:
+        def step(q: slice):
+            return _run_chunk(Cs[0], layout, kinds, prefix_full, q)
     else:
         C = _stack(Cs)
 
-        def step(C, q: slice):
-            return torch.func.vmap(lambda C_: run(C_, q))(C)
+        def step(q: slice):
+            return torch.func.vmap(lambda C_: _run_chunk(C_, layout, kinds, prefix_full, q))(C)
 
     mesh = getattr(cal, 'gsa_mesh', None)
     if mesh is not None:
         # The chunks spread over the mesh's ranks (gsa/mesh.py), as romcomma_tpu's do.
         from romcomma_tpu_torch.gsa.mesh import error_sweep
-        quads, psi = error_sweep(mesh, N, chunk, lambda q: step(C, q), kinds)
+        quads, psi = error_sweep(mesh, N, chunk, step, kinds)
     else:
         quads, psi_parts = None, {k: [] for k in kinds}
         for start in range(0, N, chunk):
-            out = step(C, slice(start, start + chunk))
+            out = step(slice(start, start + chunk))
             quads = ({k: out[k][0] for k in kinds} if quads is None else
                      {k: tuple(q0 + q1 for q0, q1 in zip(quads[k], out[k][0]))
                       for k in kinds})

@@ -18,7 +18,8 @@ from romcomma_tpu.models import gp as jax_gp
 from romcomma_tpu.models.params import variant_constrain, variant_init
 from romcomma_tpu_torch.base import tracing
 from romcomma_tpu_torch.base.definitions import pinned_device
-from romcomma_tpu_torch.gsa import base, calibrators
+from romcomma_tpu_torch.gsa import base, calibrators, factorized_errors, sweep_kernel
+import torch_sweep_support
 from test_reference_fixture import SOBOL_S, SOBOL_V
 
 
@@ -288,6 +289,112 @@ def test_factorized_sweep_matches_the_per_slice_path(L, is_T_partial):
             atol = 1e-7 if key == 'T' else 1e-11
             np.testing.assert_allclose(got[key][..., i].numpy(), want[key].numpy(), rtol=1e-9,
                                        atol=atol, err_msg=f'{key} {s} partial={is_T_partial}')
+
+
+def test_sweep_kernel_module_imports_without_triton(monkeypatch):
+    """The fused W/T sweep's module imports Triton only at its first launch,
+    so it loads (and the CPU tests run) where there is no Triton."""
+    import importlib.util
+    import sys
+    spec = importlib.util.spec_from_file_location('_sweep_kernel_probe', sweep_kernel.__file__)
+    module = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, 'triton', None)
+    spec.loader.exec_module(module)
+    assert module.LAUNCHES == 0 and module._KERNEL is None
+
+
+@pytest.mark.parametrize('device, dtype, route', [
+    ('cpu', torch.float64, 'torch'), ('cpu', torch.float32, 'torch'),
+    ('cuda', torch.float64, 'kernel'), ('cuda:1', torch.float64, 'kernel'),
+    ('cuda', torch.float32, TypeError), ('cuda', torch.float16, TypeError),
+    ('meta', torch.float64, ValueError)])
+def test_sweep_route(device, dtype, route):
+    """CUDA float64 goes to the kernel, the CPU to the plain sweep; any
+    other CUDA dtype, or another device type, raises: there is no fallback."""
+    if isinstance(route, str):
+        assert sweep_kernel.route(torch.device(device), dtype) == route
+    else:
+        with pytest.raises(route):
+            sweep_kernel.route(torch.device(device), dtype)
+
+
+def test_cpu_calibrator_takes_the_plain_sweep():
+    """A CPU calibrator's W/T sweep launches nothing, and its span says so."""
+    _, cal = _pair('ClosedSobolWithError', 1)
+    before = sweep_kernel.LAUNCHES
+    mode = tracing.mode('on')
+    tracing.reset()
+    try:
+        cal.marginalize_intervals(SLICES)
+        stages = tracing.spans()
+    finally:
+        tracing.mode(mode)
+        tracing.reset()
+    assert sweep_kernel.LAUNCHES == before
+    assert stages[-1]['name'] == 'gsa.wt_sweep' and stages[-1]['attrs']['launches'] == 0
+
+
+#: Every sweep mode of _run_chunk: prefix-last only (the full interval),
+#: forward with 'single', reverse with 'suffix', the single-sweep mode, and
+#: full prefix columns with a second, reverse sweep.
+NEEDS = [{}, {'single': True}, {'suffix': True}, {'single': True, 'suffix': True},
+         {'single': True, 'prefix': True, 'suffix': True}]
+NEED_IDS = ['prefix-last', 'single', 'suffix', 'single-sweep', 'full']
+
+
+def _error_cals(L, is_T_partial, n_cals, **meta):
+    """One calibrator, or three of one shape (the second ill-conditioned)."""
+    arrays = [_posterior(L), _posterior(L, stiff=True), _posterior(L)][:n_cals]
+    return [calibrators.ClosedSobolWithError.from_arrays(
+        **a, is_F_diagonal=True, L=L, M=M, N=N, is_T_partial=is_T_partial, **meta)
+        for a in arrays]
+
+
+@pytest.mark.parametrize('n_cals', [1, 3])
+@pytest.mark.parametrize('need', NEEDS, ids=NEED_IDS)
+@pytest.mark.parametrize('is_T_partial', [True, False], ids=['T-partial', 'T-full'])
+@pytest.mark.parametrize('L', [1, 2])
+def test_kernel_contract_reproduces_the_plain_chunk(monkeypatch, L, is_T_partial, need, n_cals):
+    """The kernel's chunk on the CPU, its launches emulated with its own
+    offsets: the packed planes, each sweep mode's passes and the host's
+    q-side weights give _run_chunk's quads and psi columns, for one
+    calibrator and for three at once (the kernel's calibrator axis), on a
+    first and on a short last chunk."""
+    monkeypatch.setattr(sweep_kernel, 'sweep', torch_sweep_support.emulated_sweep)
+    cals = _error_cals(L, is_T_partial, n_cals)
+    for q in (slice(0, 16), slice(48, 64)):
+        torch_sweep_support.assert_within_scale(*torch_sweep_support.chunks_of(cals, need, q))
+
+
+@pytest.mark.parametrize('need', NEEDS[-2:], ids=NEED_IDS[-2:])
+@pytest.mark.parametrize('n_cals', [1, 3])
+def test_kernel_route_of_the_error_scan(monkeypatch, n_cals, need):
+    """error_scan_folds on the kernel's route (taken here by the CPU, its
+    launches emulated) in ragged chunks of 16 columns: a launch a pass and
+    plane kind of each chunk, and the plain route's quads and psi factors,
+    each calibrator its own (three of one well-conditioned posterior, K^-1 y
+    scaled apart; the chunk sums' rounding is held above)."""
+    arrays = _posterior(2)
+    cals = [calibrators.ClosedSobolWithError.from_arrays(
+        **dict(arrays, K_inv_Y=arrays['K_inv_Y'] * scale), is_F_diagonal=True, L=2, M=M, N=N,
+        is_T_partial=False, n_chunk=16) for scale in (1.0, 1.3, -0.6)[:n_cals]]
+    want = factorized_errors.error_scan_folds(cals, need)
+    launches = []
+    monkeypatch.setattr(sweep_kernel, 'route', lambda device, dtype: 'kernel')
+    monkeypatch.setattr(sweep_kernel, 'sweep', lambda *args, **kwargs: (
+        launches.append(len(args[3])), torch_sweep_support.emulated_sweep(*args, **kwargs))[1])
+    got = factorized_errors.error_scan_folds(cals, need)
+    assert launches == [2 if need.get('prefix') else 1] * (2 * -(-N // 16))
+    for g, w in zip(got, want):
+        for part in ('quads', 'psi'):
+            assert g[part].keys() == w[part].keys()
+            for kind in w[part]:
+                pairs = zip(g[part][kind], w[part][kind]) if part == 'quads' else [
+                    (g[part][kind], w[part][kind])]
+                for x, y in pairs:
+                    np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-9,
+                                               atol=1e-11 * float(y.abs().max()),
+                                               err_msg=f'{part} {kind}')
 
 
 def test_errors_refuse_a_non_diagonal_signal_variance():

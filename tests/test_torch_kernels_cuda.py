@@ -475,3 +475,111 @@ def test_covariant_mesh_float32_value_and_grad_at_one_rank(cuda):
     apart = chip_smoke._apart(got, readings[torch.float64])
     assert all(np.isfinite(a) and a <= m * r for a, m, r in zip(
         apart, chip_smoke.COVARIANT_MESH_F32_MULTIPLES, reference)), (apart, reference)
+
+
+# --------------------------------------------------------------------------- #
+# The fused W/T sweep (gsa/sweep_kernel.py) against the plain _run_chunk
+# --------------------------------------------------------------------------- #
+
+#: Every sweep mode of _run_chunk (prefix-last only, forward with 'single',
+#: 'suffix' alone, the single-sweep mode, full prefix columns and a second
+#: reverse sweep), as error_scan_folds' ``need``.
+SWEEP_NEEDS = [{}, {'single': True}, {'suffix': True}, {'single': True, 'suffix': True},
+               {'single': True, 'prefix': True, 'suffix': True}]
+SWEEP_NEED_IDS = ['prefix-last', 'single', 'suffix', 'single-sweep', 'full']
+#: Rows: not a multiple of the kernel's row or column tile.
+SWEEP_N, SWEEP_M = 1000, 5
+
+
+def _sweep_calibrators(L, is_T_partial, n_cals, N=SWEEP_N, M=SWEEP_M):
+    """n_cals float64 ClosedSobolWithError of one shape on the current
+    device, each from its own inputs, posterior factors from the port's
+    float64 plain path."""
+    import numpy as np
+    from romcomma_tpu_torch.gsa import calibrators
+    from romcomma_tpu_torch.models import gp, params
+    cals = []
+    for seed in range(n_cals):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=(N, M))
+        y = np.stack([np.sin(x[:, 0]) + x[:, 1], x[:, 2] ** 2, x[:, 0] * x[:, 3]], -1)[:, :L]
+        y = y + 0.05 * rng.standard_normal((N, L))
+        raw = params.variant_init(np.full(L, 1.0), np.full((L, M), 1.2 + 0.3 * seed),
+                                  np.full(L, 0.05))
+        xt, yt = (torch.tensor(a, dtype=torch.float64, device=raw['raw_noise'].device)
+                  for a in (x, y))
+        K_cho, K_inv_Y = gp.posterior_factors_variant(raw, xt, yt)
+        c = params.variant_constrain(raw)
+        cals.append(calibrators.ClosedSobolWithError.from_arrays(
+            F=c['variance'][None, :], K_cho=K_cho, K_inv_Y=K_inv_Y, Lambda=c['lengthscales'],
+            X=xt, is_F_diagonal=True, L=L, M=M, N=N, is_T_partial=is_T_partial))
+    return cals
+
+
+@pytest.mark.parametrize('n_cals', [1, 3])
+@pytest.mark.parametrize('need', SWEEP_NEEDS, ids=SWEEP_NEED_IDS)
+@pytest.mark.parametrize('is_T_partial', [True, False], ids=['T-partial', 'T-full'])
+@pytest.mark.parametrize('L', [1, 3])
+def test_sweep_kernel_matches_the_plain_chunk(cuda, L, is_T_partial, need, n_cals):
+    """The fused chunk against _run_chunk on the card, in float64: every
+    member's quads and every psi column within 1e-12 of its scale (the same
+    sum of the terms' absolute values; the two differ only in the order of
+    their additions), on the whole columns, a first chunk and a short last
+    one, for one calibrator and three at once; one launch a pass and plane
+    kind, and a rerun bit for bit."""
+    import torch_sweep_support as support
+    from romcomma_tpu_torch.gsa import sweep_kernel
+    cals = _sweep_calibrators(L, is_T_partial, n_cals)
+    passes = 2 if need.get('prefix') else 1
+    for q in (slice(0, SWEEP_N), slice(0, 384), slice(768, 1152)):
+        before = sweep_kernel.LAUNCHES
+        got, want, scale = support.chunks_of(cals, need, q)
+        torch.cuda.synchronize()
+        assert sweep_kernel.LAUNCHES == before + 2 * passes
+        support.assert_within_scale(got, want, scale)
+    again = support.chunks_of(cals, need, q)[0]
+    for kind in got:
+        for x, y in zip(got[kind][0] + (got[kind][1],), again[kind][0] + (again[kind][1],)):
+            assert torch.equal(x, y), kind
+
+
+def test_sweep_kernel_refuses_what_it_does_not_take(cuda):
+    """A float32 CUDA sweep raises at the route and at the wrapper: the
+    kernel takes float64 only, and nothing falls back."""
+    from romcomma_tpu_torch.gsa import sweep_kernel
+    with pytest.raises(TypeError):
+        sweep_kernel.route(cuda, torch.float32)
+    planes = {name: torch.zeros(1, 1, 2, 8, device=cuda) for name in ('A', 'Q')}
+    planes['W'] = torch.zeros(1, 1, 8, device=cuda)
+    with pytest.raises(TypeError):
+        sweep_kernel.sweep(planes, 0, 8, [(False, None, None, True)])
+
+
+def test_sobol_indices_with_errors_launch_the_sweep_kernel(cuda):
+    """A pass of DistributedGP.sobol_indices(..., error=True) on the card
+    runs its W/T sweep on the fused kernel (the launch count rises), and its
+    'gsa.wt_sweep' span carries a launch a plane kind: the single-sweep
+    mode's one pass over one chunk."""
+    import numpy as np
+    from romcomma_tpu_torch.base import tracing
+    from romcomma_tpu_torch.gsa import sweep_kernel
+    from romcomma_tpu_torch.parallel.distributed import DistributedGP
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((1536, 10))
+    Y = np.sin(X[:, :1]) + 0.5 * X[:, 1:2] ** 2 + 0.1 * rng.standard_normal((1536, 1))
+    dgp = DistributedGP(len(X), mesh=cuda, dtype=np.float64, engine='upper')
+    x, y = dgp.stage(X, Y)
+    before = sweep_kernel.LAUNCHES
+    mode = tracing.mode('on')
+    tracing.reset()
+    try:
+        out = dgp.sobol_indices(np.full(10, 2.0), 1.0, 0.05, x, y, X,
+                                kind=('first_order', 'total'), error=True)
+        stages = [s for s in tracing.spans() if s['name'] == 'gsa.wt_sweep']
+    finally:
+        tracing.mode(mode)
+        tracing.reset()
+    assert sweep_kernel.LAUNCHES >= before + 2
+    assert stages and all(s['attrs']['launches'] == 2 for s in stages)
+    assert all(np.isfinite(v) for part in ('S', 'T') for kind in out[part].values()
+               for v in kind.values())
