@@ -188,7 +188,7 @@ Phases (each prints its result and its time; none catches its own failure):
         the lengthscales frozen, float32: its ring gram against the
         one-device covariant gram (VALUE_TOL, and whether bit for bit); its
         float32 LML, dF and dnoise within COVARIANT_MESH_F32_MULTIPLES of
-        CovariantUpperLML float32's own distance from float64
+        the all-float32 one-device LML's own distance from float64
         CovariantUpperLML, and its float64 ones within MESH_F64_SHARE of it;
         value+grad and factor ms (median of 5) beside CovariantUpperLML's,
         the value+grad's peak memory above what was held; a calibrate of 5
@@ -1500,8 +1500,12 @@ def profile_covariant(torch, gram_kernels, repo):
     """Phase 7: one lengthscale-frozen value+grad (CovariantUpperLML) at L*N = 12288
     and 24576, and one lengthscale-trainable value+grad (the autograd
     objective, which runs the unit gram's forward and backward every
-    evaluation) at 12288, at the trained parameters, in float32."""
+    evaluation) at 12288, at the trained parameters, in float32. The profiled
+    frozen value+grad is read by the program's own stages (the
+    'covariant_lml.*' spans of ``base.tracing``, device ms), the trainable
+    one, which has none, by its top kernels."""
     from torch.autograd import DeviceType
+    from romcomma_tpu_torch.base import tracing
     from romcomma_tpu_torch.data.storage import Fold
     from romcomma_tpu_torch.models import gp, params
     for k, route in ((0, 'lengthscales frozen'), (2, 'lengthscales frozen'),
@@ -1526,12 +1530,16 @@ def profile_covariant(torch, gram_kernels, repo):
         wall = (time.perf_counter() - t0) / 3 * 1e3
         per_step = (gram_kernels.LAUNCHES - launches) / 3
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tracing.reset()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             profiled = (time.perf_counter() - t0) * 1e3
+        stages = {s['name']: s['device_ms'] or math.nan for s in tracing.spans()
+                  if s['name'].startswith('covariant_lml.')}
+        tracing.reset()
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         gram_ms = sum(e.self_device_time_total for e in kernels
@@ -1539,12 +1547,19 @@ def profile_covariant(torch, gram_kernels, repo):
         print(f'{route}, L*N={X.shape[0] * Y.shape[1]}: one value+grad {wall:.2f} ms wall (mean of '
               f'3); profiled {profiled:.2f} ms wall, device busy {busy:.2f} ms, idle share '
               f'{1 - busy / profiled:.3f}; unit-gram launches per value+grad {per_step:.0f}, their '
-              f'kernels {gram_ms:.3f} ms; peak device memory {peak:.2f} GiB; top kernels:',
-              flush=True)
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f'    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}',
-                  flush=True)
+              f'kernels {gram_ms:.3f} ms; peak device memory {peak:.2f} GiB; '
+              f'{"its stages (device ms):" if stages else "top kernels:"}', flush=True)
+        if stages:
+            for name, ms in stages.items():
+                print(f'    {ms:9.3f} ms  {name}', flush=True)
+        else:
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f'    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d}x  {e.key[:90]}',
+                      flush=True)
         require(per_step == (1 if route == 'lengthscales trainable' else 0), (route, per_step))
+        require(route == 'lengthscales trainable' or list(stages) == [
+            'covariant_lml.assemble', 'covariant_lml.factor', 'covariant_lml.solves',
+            'covariant_lml.inverse', 'covariant_lml.grads'], (route, list(stages)))
 
 
 #: The margin over each first-order estimate of a float32 or float64 rounding
@@ -3498,8 +3513,9 @@ COVARIANT_MESH_CORRELATION = 0.5
 #: The parts of a covariant LML evaluation that phase 13c holds apart.
 COVARIANT_MESH_PARTS = ('LML', 'dF', 'dnoise')
 #: The covariant mesh's float32 LML evaluation against float64
-#: CovariantUpperLML, part by part: within these multiples of
-#: CovariantUpperLML float32's own distance from float64 there. Set from the
+#: CovariantUpperLML, part by part: within these multiples of the all-float32
+#: one-device LML's own distance from float64 there
+#: (covariant_float32_value_and_grads). Set from the
 #: H100's readings (PERF.md): the mesh read 1.16, 128 and 3.71 times it;
 #: its float32 dF is the least accurate, as the variant engines' ds2 is (a
 #: sum of Bbar o unit over K^-1 formed blockwise from the in-place inverse,
@@ -3512,6 +3528,34 @@ def _covariant_value_and_grads(torch, lml, F, noise_cov):
     p = [t.detach().clone().requires_grad_(True) for t in (F, noise_cov)]
     value = lml(*p)
     return [value.detach().double()] + [g.double() for g in torch.autograd.grad(value, p)]
+
+
+def covariant_float32_value_and_grads(torch, X, Y, ls, F, noise_cov):
+    """[LML, dF, dnoise] (float64) of the lengthscale-frozen covariant LML
+    computed all in float32 on one device: the unit gram, its assembly, the
+    Cholesky factor, the solves, K^-1 and the block sums: CovariantUpperLML's
+    arithmetic, which now factorizes a float32 system in float64. The
+    covariant mesh's float32 route is held to this one's distance from
+    float64."""
+    import math as _math
+    from romcomma_tpu_torch.models import gp
+    from romcomma_tpu_torch.ops.gram import rbf_gram_covariant_unit
+    from romcomma_tpu_torch.ops.linalg import cholesky, tri_solve
+    with torch.no_grad():
+        unit4 = rbf_gram_covariant_unit(X, ls)
+        L, N = unit4.shape[:2]
+        chol = cholesky(gp._assemble(unit4, F, noise_cov))
+        yy = Y.T.reshape(-1, 1)
+        z = tri_solve(chol, yy)
+        value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
+                 - 0.5 * L * N * _math.log(2.0 * _math.pi))
+        alpha = tri_solve(chol, z, trans=True)
+        W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])
+        del chol
+        W4 = W.view(L, N, L, N)
+        dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
+        dF = 0.5 * W4.mul_(unit4).sum(dim=(1, 3))
+    return [value.double(), dF.double(), dnoise.double()]
 
 
 def _covariant_parts(values) -> str:
@@ -3534,15 +3578,17 @@ def covariant_mesh_point(torch, repo):
 
 
 def covariant_mesh_reference(torch, X, Y, ls, F, noise):
-    """Phase 13c's one-device reference: CovariantUpperLML's float32 LML, dF
-    and dnoise and the median ms of its value+grad, the float64 ones on the
-    same float32-rounded inputs, the float32 one's distance from them part
-    by part, and the float64 parts' sizes."""
+    """Phase 13c's one-device reference: the all-float32 LML, dF and dnoise
+    (covariant_float32_value_and_grads), the median ms of CovariantUpperLML's
+    value+grad, the float64 ones on the same float32-rounded inputs, the
+    float32 one's distance from them part by part, and the float64 parts'
+    sizes."""
     from romcomma_tpu_torch.models import gp
     at32 = [torch.tensor(a, dtype=torch.float32, device=CARD) for a in (F, noise)]
     ls32 = torch.tensor(ls, dtype=torch.float32, device=CARD)
     upper = gp.covariant_upper_lml(X, ls32, Y)
-    ref = {'at32': at32, 'ls32': ls32, 'f32': _covariant_value_and_grads(torch, upper, *at32),
+    ref = {'at32': at32, 'ls32': ls32,
+           'f32': covariant_float32_value_and_grads(torch, X, Y, ls32, *at32),
            'ms': median_ms(torch, lambda: _covariant_value_and_grads(torch, upper, *at32))}
     del upper
     upper = gp.covariant_upper_lml(X.double(), ls32.double(), Y.double())
@@ -3551,7 +3597,7 @@ def covariant_mesh_reference(torch, X, Y, ls, F, noise):
     ref['apart'] = _apart(ref['f32'], ref['f64'])
     ref['size'] = [float(w.abs().max()) for w in ref['f64']]
     require(all(a > 0.0 for a in ref['apart']),
-            ('CovariantUpperLML float32 equals float64', ref['apart']))
+            ('the all-float32 LML equals float64', ref['apart']))
     return ref
 
 
@@ -3608,13 +3654,13 @@ def covariant_mesh_engine(torch, gram_kernels, mesh, X, Y, ls, F, noise, ref):
           f'L*N={LN}: ring gram against the one-device covariant gram max |diff| {gram_err:.3e} '
           f'(tol {gram_tol:.3e}), {"bit for bit" if bitwise else "not bit for bit"}, padding '
           f'exact; against float64 CovariantUpperLML (sizes: {_covariant_parts(ref["size"])}): '
-          f'CovariantUpperLML float32 {_covariant_parts(ref["apart"])}; the mesh float32 '
+          f'all-float32 one-device {_covariant_parts(ref["apart"])}; the mesh float32 '
           f'{_covariant_parts(apart)}, i.e. ' + ', '.join(f'{m:.3g}' for m in multiples)
-          + ' times CovariantUpperLML float32\'s (limits '
+          + ' times the all-float32 one-device\'s (limits '
           + ', '.join(f'{m:g}' for m in COVARIANT_MESH_F32_MULTIPLES) + f'); float64 '
           f'{_covariant_parts(apart64)}, i.e. ' + ', '.join(f'{m:.3g}' for m in shares)
           + f' of it (limit {MESH_F64_SHARE:g}; {float64_s:.2f} s); LML float32 '
-          f'{got[0].item():.6f}, CovariantUpperLML float32 {ref["f32"][0].item():.6f}, float64 '
+          f'{got[0].item():.6f}, all-float32 one-device {ref["f32"][0].item():.6f}, float64 '
           f'{ref["f64"][0].item():.6f}', flush=True)
     require(all(m <= limit for m, limit in zip(multiples, COVARIANT_MESH_F32_MULTIPLES)),
             ('covariant mesh', 'float32', apart, ref['apart']))
@@ -3651,7 +3697,7 @@ def covariant_mesh_phase(torch, gram_kernels, mesh, repo):
     X, Y, ls, F, noise = covariant_mesh_point(torch, repo)
     ref = covariant_mesh_reference(torch, X, Y, ls, F, noise)
     print(f'one-device covariant reference at L*N={X.shape[0] * Y.shape[1]}: CovariantUpperLML '
-          f'float32 value+grad {ref["ms"]:.2f} ms (median of {MESH_TIMED}), LML '
+          f'float32 value+grad {ref["ms"]:.2f} ms (median of {MESH_TIMED}), all-float32 LML '
           f'{ref["f32"][0].item():.6f} (float64 {ref["f64"][0].item():.6f}); F off-diagonal '
           f'correlation {COVARIANT_MESH_CORRELATION}; {time.perf_counter() - t0:.2f} s',
           flush=True)
@@ -3776,7 +3822,7 @@ def mesh_ranks_phase(torch, ref, hypers, point, covariant_ref):
             ('covariant mesh', S, apart, covariant_ref['apart']))
     print(f'covariant mesh on {S} NCCL ranks: every rank the same bits; against float64 '
           f'CovariantUpperLML {_covariant_parts(apart)}, i.e. '
-          + ', '.join(f'{m:.3g}' for m in multiples) + ' times CovariantUpperLML float32\'s; '
+          + ', '.join(f'{m:.3g}' for m in multiples) + ' times the all-float32 one-device\'s; '
           'value+grad ' + ', '.join(f'{r["covariant ms"]:.2f}' for r in results) + ' ms by rank',
           flush=True)
 

@@ -337,16 +337,35 @@ class CovariantUpperLML(torch.autograd.Function):
     Forward inputs: F, noise_cov (L,L); unit4 (L,N,L,N), the unit gram; yy
     (LN,1), the outputs stacked output-major. A factorization that breaks
     down gives lml = -inf (through ops.linalg.cholesky's NaN), so a
-    minimizer of -lml sees +inf and backs off."""
+    minimizer of -lml sees +inf and backs off. Its stages are the spans
+    'covariant_lml.assemble', '.factor' and '.solves' (forward), '.inverse'
+    (K^-1 and the alpha alpha^T update) and '.grads' (the block sums;
+    backward), ``base.tracing``.
+
+    A float32 system (float32 training) is assembled from its float32 unit
+    gram into a float64 (LN,LN) buffer and factorized, solved, inverted and
+    reduced in float64, as ``MeshLML`` does on one rank: the value is
+    float64, the gradients take F's and noise_cov's dtype. At
+    benchmark_script's top grid point (L N = 44280, on an H100) the float32
+    factor put the LML up to 17 away from float64's and left 10 of 11
+    descents at their start (PERF.md); the covariant mesh over several ranks
+    keeps float32, as romcomma_tpu's does."""
 
     @staticmethod
     def forward(ctx, F, noise_cov, unit4, yy):
-        chol = cholesky(_assemble(unit4, F, noise_cov))
-        z = tri_solve(chol, yy)
-        value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
-                 - 0.5 * yy.shape[0] * math.log(2.0 * math.pi))
-        value = torch.where(torch.isfinite(value), value, -torch.inf)
-        alpha = tri_solve(chol, z, trans=True)                          # K^-1 yy
+        on, wide = unit4.device, torch.promote_types(F.dtype, torch.float64)
+        ctx.dtypes = (F.dtype, noise_cov.dtype)
+        with tracing.span('covariant_lml.assemble', on=on):
+            K = _assemble(unit4, F.to(wide), noise_cov.to(wide))
+        with tracing.span('covariant_lml.factor', on=on):
+            chol = cholesky(K)
+            del K
+        with tracing.span('covariant_lml.solves', on=on):
+            z = tri_solve(chol, yy.to(wide))
+            value = (-0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol)))
+                     - 0.5 * yy.shape[0] * math.log(2.0 * math.pi))
+            value = torch.where(torch.isfinite(value), value, -torch.inf)
+            alpha = tri_solve(chol, z, trans=True)                      # K^-1 yy
         ctx.save_for_backward(chol, alpha, unit4)
         return value
 
@@ -354,11 +373,14 @@ class CovariantUpperLML(torch.autograd.Function):
     def backward(ctx, gbar):
         chol, alpha, unit4 = ctx.saved_tensors
         L, N = unit4.shape[:2]
-        W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])
-        W4 = W.view(L, N, L, N)
-        dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
-        dF = 0.5 * W4.mul_(unit4).sum(dim=(1, 3))
-        return gbar * dF, gbar * dnoise, None, None
+        with tracing.span('covariant_lml.inverse', on=unit4.device):
+            W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])
+        with tracing.span('covariant_lml.grads', on=unit4.device):
+            W4 = W.view(L, N, L, N)
+            dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
+            dF = 0.5 * W4.mul_(unit4).sum(dim=(1, 3))
+        F_dtype, noise_dtype = ctx.dtypes
+        return (gbar * dF).to(F_dtype), (gbar * dnoise).to(noise_dtype), None, None
 
 
 def covariant_upper_lml(x: torch.Tensor, lengthscales: torch.Tensor, y: torch.Tensor
@@ -366,9 +388,10 @@ def covariant_upper_lml(x: torch.Tensor, lengthscales: torch.Tensor, y: torch.Te
     """lml(F, noise_cov) of the ls-frozen covariant MOGP at inputs x (N,M),
     outputs y (N,L) and fixed lengthscales (L,M), through CovariantUpperLML:
     romcomma_tpu's ``covariant_upper_lml``. The unit gram is built once, here,
-    through the unit-gram kernel on a float32 CUDA device; each call then
-    costs one Cholesky forward and one cholesky_inverse backward."""
-    with torch.no_grad():
+    through the unit-gram kernel on a float32 CUDA device (the span
+    'covariant_lml.unit'); each call then costs one Cholesky forward and one
+    cholesky_inverse backward."""
+    with torch.no_grad(), tracing.span('covariant_lml.unit', on=x.device):
         unit4 = rbf_gram_covariant_unit(x, lengthscales.detach())
     yy = y.T.reshape(-1, 1)
     return lambda F, noise_cov: CovariantUpperLML.apply(F, noise_cov, unit4, yy)

@@ -389,3 +389,25 @@ def test_covariant_gsa_matches_romcomma_tpu(covariant_trees, label, tmp_path):
                          is_isotropic=False, is_error_calculated=True)
     assert user.run.gsa('gpr', Repository(tmp_path / 'port'), is_covariant=True,
                         is_isotropic=False, is_error_calculated=True, ignore_exceptions=True) == []
+
+
+@pytest.mark.parametrize('mask', ['default', 'F off-diagonals trained'])
+def test_upper_lml_matches_the_plain_reference(mask):
+    """CovariantUpperLML's objective and its gradient in the optimizer's own
+    coordinates (the Cholesky leaves) against perfbench's plain float64
+    reference (perfbench/reference/covariant_lml.py), at L=3, N=32, M=4."""
+    from perfbench.reference import covariant_lml as ref
+    X, Y, values = _problem(seed=7, N=32, M=4, L=3)
+    raw = params.covariant_init(*values, on=CPU)
+    raw = {name: value.to(torch.float64) for name, value in raw.items()}
+    m = params.covariant_mask(kernel_covariance=mask != 'default')
+    x, y = torch.tensor(X), torch.tensor(Y)
+    objective, _ = gp._covariant_objective(raw, m, x, y)
+    value, grads = _value_and_grad(objective, raw)
+    want = ref.chol_value_and_grad(x, y, params.covariant_constrain(raw)['lengthscales'],
+                                   {name: value.detach() for name, value in raw.items()})
+    _close(-value, want['lml'])
+    for name, got in zip(params.COVARIANT_FIELDS, grads):
+        expected = (torch.zeros_like(got) if name == 'raw_lengthscales'
+                    else -m[name] * want[name])
+        _close(got, expected, rtol=GRAD_TOL, atol=GRAD_TOL)

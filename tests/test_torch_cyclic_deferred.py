@@ -192,3 +192,49 @@ def test_float32_engines_factorize_in_float64(engine):
     np.testing.assert_allclose(dnoise_got, dnoise, rtol=1e-5)
     np.testing.assert_allclose(ds2_got, ds2, rtol=1e-5)
     assert abs(readings['upper'][2] - dnoise) > 100 * abs(dnoise_got - dnoise)
+
+
+def test_float32_covariant_upper_lml_factorizes_in_float64():
+    """CovariantUpperLML on a float32 system (one device) assembles its
+    float32 unit gram into a float64 buffer and factorizes, inverts and
+    reduces in float64: its LML (a float64 value), dF and dnoise (float32)
+    are those of the float64 factor of that float32 unit gram, at a point
+    (F / noise = 1e4) where the all-float32 LML's dnoise (autograd through a
+    float32 Cholesky) lies more than 100 times as far from them."""
+    from romcomma_tpu_torch.models import gp
+    from romcomma_tpu_torch.ops.gram import rbf_gram_covariant_unit
+    rng = np.random.default_rng(12)
+    L, N, M = 2, 80, 3
+    X = rng.normal(size=(N, M))
+    Y = np.stack([np.sin(X[:, 0]), X[:, 1] * X[:, 2]], 1) + 0.01 * rng.normal(size=(N, L))
+    F = np.array([[100.0, 30.0], [30.0, 80.0]])
+    noise = np.array([[0.01, 0.002], [0.002, 0.012]])
+    ls = np.full((L, M), 1.5)
+    with pinned_device(torch.device('cpu')):
+        x, y, ls32 = (torch.tensor(a, dtype=torch.float32) for a in (X, Y, ls))
+        F32, noise32 = (torch.tensor(a, dtype=torch.float32, requires_grad=True)
+                        for a in (F, noise))
+        value = gp.covariant_upper_lml(x, ls32, y)(F32, noise32)
+        dF, dnoise = torch.autograd.grad(value, (F32, noise32))
+        unit4 = rbf_gram_covariant_unit(x, ls32).double()
+        K = gp._assemble(unit4, F32.detach().double(), noise32.detach().double())
+        chol = torch.linalg.cholesky(K)
+        yy = y.double().T.reshape(-1, 1)
+        alpha = torch.cholesky_solve(yy, chol)
+        lml = (-0.5 * torch.sum(yy * alpha) - torch.sum(torch.log(torch.diagonal(chol)))
+               - 0.5 * L * N * np.log(2.0 * np.pi)).item()
+        W = (torch.outer(alpha[:, 0], alpha[:, 0]) - torch.cholesky_inverse(chol)).view(L, N, L, N)
+        want_dnoise = 0.5 * W.diagonal(dim1=1, dim2=3).sum(-1)
+        want_dF = 0.5 * (W * unit4).sum(dim=(1, 3))
+        F2, noise2 = (torch.tensor(a, dtype=torch.float32, requires_grad=True)
+                      for a in (F, noise))
+        chol32 = torch.linalg.cholesky(gp._assemble(rbf_gram_covariant_unit(x, ls32), F2, noise2))
+        z = torch.linalg.solve_triangular(chol32, y.T.reshape(-1, 1), upper=False)
+        lml32 = -0.5 * torch.sum(z * z) - torch.sum(torch.log(torch.diagonal(chol32)))
+        all32 = torch.autograd.grad(lml32, noise2)[0]
+    assert value.dtype == torch.float64 and dF.dtype == dnoise.dtype == torch.float32
+    np.testing.assert_allclose(value.item(), lml, rtol=1e-9)
+    np.testing.assert_allclose(dF.numpy(), want_dF.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dnoise.numpy(), want_dnoise.numpy(), rtol=1e-5, atol=1e-5)
+    assert (torch.max(torch.abs(all32.double() - want_dnoise))
+            > 100 * torch.max(torch.abs(dnoise.double() - want_dnoise)))

@@ -437,10 +437,10 @@ def test_covariant_mesh_float32_value_and_grad_at_one_rank(cuda):
     """DistributedCovariantGP over an NCCL group of this process alone (world
     size 1) at L N = 3 x 2048, M = 30, F and the noise covariance
     non-diagonal: one float32 value and (F, noise_cov) gradient, whose ring
-    tile and three pair tiles launch the kernel, against CovariantUpperLML:
-    each part within chip_smoke.py's COVARIANT_MESH_F32_MULTIPLES of
-    CovariantUpperLML float32's own distance from float64, as phase 13c
-    holds it."""
+    tile and three pair tiles launch the kernel, against CovariantUpperLML's
+    float64: each part within chip_smoke.py's COVARIANT_MESH_F32_MULTIPLES of
+    the all-float32 one-device LML's own distance from float64
+    (chip_smoke.covariant_float32_value_and_grads), as phase 13c holds it."""
     import sys
     from pathlib import Path
 
@@ -458,13 +458,14 @@ def test_covariant_mesh_float32_value_and_grad_at_one_rank(cuda):
     F = np.array([[1.0, 0.5, 0.2], [0.5, 0.9, 0.3], [0.2, 0.3, 0.8]])
     noise = np.array([[0.01, 0.002, 0.0], [0.002, 0.012, 0.001], [0.0, 0.001, 0.011]])
     readings = {}
-    for dtype in (torch.float32, torch.float64):
-        x, y, ls_t, F_t, noise_t = (torch.as_tensor(a, dtype=dtype, device=cuda)
-                                    for a in (X, Y, ls, F, noise))
-        readings[dtype] = chip_smoke._covariant_value_and_grads(
-            torch, gp.covariant_upper_lml(x, ls_t, y), F_t, noise_t)
+    x, y, ls_t, F_t, noise_t = (torch.as_tensor(a, dtype=torch.float64, device=cuda)
+                                for a in (X, Y, ls, F, noise))
+    readings[torch.float64] = chip_smoke._covariant_value_and_grads(
+        torch, gp.covariant_upper_lml(x, ls_t, y), F_t, noise_t)
     x, y, ls_t, F_t, noise_t = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
                                 for a in (X, Y, ls, F, noise))
+    readings[torch.float32] = chip_smoke.covariant_float32_value_and_grads(
+        torch, x, y, ls_t, F_t, noise_t)
     with chip_smoke.nccl_group(torch):
         dgp = DistributedCovariantGP(2048, 3, make_n_mesh(), dtype=np.float32)
         lml = dgp.lml_fn(dgp.stage(x, y, ls_t))

@@ -207,7 +207,7 @@ def test_chip_smoke_phase_13b_rank_body_on_gloo():
     float32 LML and gradient held to float64 ExactLML's by phase 13b's rule,
     within MESH_RANKS_F32_MULTIPLES of ExactLML float32's own distance, and the
     covariant mesh's to float64 CovariantUpperLML's by phase 13c's, within
-    COVARIANT_MESH_F32_MULTIPLES of CovariantUpperLML float32's."""
+    COVARIANT_MESH_F32_MULTIPLES of the all-float32 one-device LML's."""
     size = (300, 4)
     hypers = (np.full(size[1], 2.0, np.float32), np.float32(1.0), np.float32(0.05))
     point = _covariant_point()
@@ -227,9 +227,10 @@ def test_chip_smoke_phase_13b_rank_body_on_gloo():
         assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.MESH_RANKS_F32_MULTIPLES,
                                                  reference)), (engine, apart, reference)
     X, Y, ls, F, noise = (torch.as_tensor(a) for a in point)
-    f32, f64 = (chip_smoke._covariant_value_and_grads(
-        torch, gp.covariant_upper_lml(X.to(dtype), ls.to(dtype), Y.to(dtype)), F.to(dtype),
-        noise.to(dtype)) for dtype in (torch.float32, torch.float64))
+    f32 = chip_smoke.covariant_float32_value_and_grads(torch, X, Y, ls, F, noise)
+    f64 = chip_smoke._covariant_value_and_grads(
+        torch, gp.covariant_upper_lml(X.double(), ls.double(), Y.double()), F.double(),
+        noise.double())
     reference = chip_smoke._apart(f32, f64)
     apart = chip_smoke._apart([torch.as_tensor(g) for g in results[0]['covariant']], f64)
     assert all(a <= m * r for a, m, r in zip(apart, chip_smoke.COVARIANT_MESH_F32_MULTIPLES,

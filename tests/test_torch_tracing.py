@@ -125,6 +125,31 @@ def test_batched_exact_lml_records_its_three_stages(on):
         'members': 3}
 
 
+COVARIANT_STAGES = ['covariant_lml.unit', 'covariant_lml.assemble', 'covariant_lml.factor',
+                    'covariant_lml.solves', 'covariant_lml.inverse', 'covariant_lml.grads']
+
+
+@pytest.mark.parametrize('m', ['auto', 'off'])
+def test_covariant_upper_lml_records_its_six_stages_in_auto_mode(m):
+    """Under a profiler the covariant value and gradient records its six
+    stages in order in 'auto' mode, and none in 'off'."""
+    from romcomma_tpu_torch.models.gp import covariant_upper_lml
+    rng = np.random.default_rng(3)
+    x, y = torch.tensor(rng.normal(size=(20, 2))), torch.tensor(rng.normal(size=(20, 2)))
+    F = torch.tensor([[1.0, 0.2], [0.2, 0.8]], requires_grad=True)
+    noise = torch.tensor([[0.05, 0.01], [0.01, 0.04]], requires_grad=True)
+    previous = tracing.mode(m)
+    tracing.reset()
+    try:
+        with pinned_device(torch.device('cpu')), torch.profiler.profile():
+            lml = covariant_upper_lml(x, torch.ones((2, 2), dtype=torch.float64), y)
+            torch.autograd.grad(lml(F, noise), (F, noise))
+        assert _names() == (COVARIANT_STAGES if m == 'auto' else [])
+    finally:
+        tracing.mode(previous)
+        tracing.reset()
+
+
 def _cyclic2(N, device, dtype, seed=0):
     """A 'cyclic2' DistributedGP on ``device`` with N staged rows, and its
     value and gradient at one point."""
