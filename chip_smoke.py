@@ -3519,7 +3519,7 @@ COVARIANT_MESH_PARTS = ('LML', 'dF', 'dnoise')
 #: H100's readings (PERF.md): the mesh read 1.16, 128 and 3.71 times it;
 #: its float32 dF is the least accurate, as the variant engines' ds2 is (a
 #: sum of Bbar o unit over K^-1 formed blockwise from the in-place inverse,
-#: where CovariantUpperLML takes cholesky_inverse's).
+#: where the all-float32 reference takes cholesky_inverse's).
 COVARIANT_MESH_F32_MULTIPLES = (4.0, 400.0, 12.0)
 
 
@@ -3533,8 +3533,9 @@ def _covariant_value_and_grads(torch, lml, F, noise_cov):
 def covariant_float32_value_and_grads(torch, X, Y, ls, F, noise_cov):
     """[LML, dF, dnoise] (float64) of the lengthscale-frozen covariant LML
     computed all in float32 on one device: the unit gram, its assembly, the
-    Cholesky factor, the solves, K^-1 and the block sums: CovariantUpperLML's
-    arithmetic, which now factorizes a float32 system in float64. The
+    Cholesky factor, the solves, K^-1 (cholesky_inverse's) and the block
+    sums: CovariantUpperLML's arithmetic, which now factorizes a float32
+    system in float64 and forms K^-1 in the factor's buffer. The
     covariant mesh's float32 route is held to this one's distance from
     float64."""
     import math as _math

@@ -32,7 +32,8 @@ from romcomma_tpu_torch.models.params import (CovariantParams, VariantParams,
 from romcomma_tpu_torch.ops import lbfgs
 from romcomma_tpu_torch.ops.gram import (rbf_gram, rbf_gram_covariant, rbf_gram_covariant_unit,
                                          rbf_gram_variant)
-from romcomma_tpu_torch.ops.linalg import add_diag, cho_solve, cholesky, mvn_logpdf, tri_solve
+from romcomma_tpu_torch.ops.linalg import (add_diag, cho_inverse_lower_, cho_solve, cholesky,
+                                           mvn_logpdf, tri_solve)
 
 
 def _lml_forward(K: torch.Tensor, y: torch.Tensor, N: int):
@@ -334,13 +335,21 @@ class CovariantUpperLML(torch.autograd.Function):
     (L,L) matrices; covariant_constrain's SPD parameterization outside
     symmetrizes them through ordinary autograd.
 
+    The backward forms K^-1 in the saved factor's own buffer
+    (``ops.linalg.cho_inverse_lower_``: potri's algorithm, 2(LN)^3/3 flops,
+    no other (LN, LN) buffer) and reads its lower triangle only: the lower
+    blocks (i >= j) of W, dF[j, i] = dF[i, j] and dnz[j, i] = dnz[i, j] since
+    W and the unit gram are symmetric, and a diagonal block counts its strict
+    lower part twice. The factor is gone after it, so the backward runs once
+    a forward: a second backward of a retained graph raises.
+
     Forward inputs: F, noise_cov (L,L); unit4 (L,N,L,N), the unit gram; yy
     (LN,1), the outputs stacked output-major. A factorization that breaks
     down gives lml = -inf (through ops.linalg.cholesky's NaN), so a
     minimizer of -lml sees +inf and backs off. Its stages are the spans
     'covariant_lml.assemble', '.factor' and '.solves' (forward), '.inverse'
-    (K^-1 and the alpha alpha^T update) and '.grads' (the block sums;
-    backward), ``base.tracing``.
+    (K^-1 and the alpha alpha^T update of its lower blocks) and '.grads' (the
+    block sums; backward), ``base.tracing``.
 
     A float32 system (float32 training) is assembled from its float32 unit
     gram into a float64 (LN,LN) buffer and factorized, solved, inverted and
@@ -367,18 +376,37 @@ class CovariantUpperLML(torch.autograd.Function):
             value = torch.where(torch.isfinite(value), value, -torch.inf)
             alpha = tri_solve(chol, z, trans=True)                      # K^-1 yy
         ctx.save_for_backward(chol, alpha, unit4)
+        ctx.inverted = False
         return value
 
     @staticmethod
     def backward(ctx, gbar):
+        if ctx.inverted:
+            raise RuntimeError('CovariantUpperLML: its backward overwrites the saved factor with '
+                               'K^-1, so it runs once a forward; evaluate the LML again instead '
+                               'of retaining its graph.')
+        ctx.inverted = True
         chol, alpha, unit4 = ctx.saved_tensors
         L, N = unit4.shape[:2]
         with tracing.span('covariant_lml.inverse', on=unit4.device):
-            W = torch.cholesky_inverse(chol).neg_().addr_(alpha[:, 0], alpha[:, 0])
+            W4 = cho_inverse_lower_(chol).view(L, N, L, N)              # K^-1, lower blocks
+            a = alpha.view(L, N)
+            blocks = [(i, j) for i in range(L) for j in range(i + 1)]
+            for i, j in blocks:
+                W4[i, :, j].addr_(a[i], a[j], beta=-1.0)
         with tracing.span('covariant_lml.grads', on=unit4.device):
-            W4 = W.view(L, N, L, N)
-            dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
-            dF = 0.5 * W4.mul_(unit4).sum(dim=(1, 3))
+            traces = W4.diagonal(dim1=1, dim2=3).sum(-1)                # read where i >= j
+            sums = {}
+            for i, j in blocks:
+                W_ij = W4[i, :, j].mul_(unit4[i, :, j])
+                if i == j:                                              # its lower triangle
+                    W_ij.tril_()
+                    sums[i, j] = 2.0 * W_ij.sum() - W_ij.diagonal().sum()
+                else:
+                    sums[i, j] = W_ij.sum()
+            dnoise = 0.5 * (traces.tril() + traces.tril(-1).mT)
+            dF = 0.5 * torch.stack([sums[max(i, j), min(i, j)] for i in range(L)
+                                    for j in range(L)]).view(L, L)
         F_dtype, noise_dtype = ctx.dtypes
         return (gbar * dF).to(F_dtype), (gbar * dnoise).to(noise_dtype), None, None
 
@@ -389,8 +417,8 @@ def covariant_upper_lml(x: torch.Tensor, lengthscales: torch.Tensor, y: torch.Te
     outputs y (N,L) and fixed lengthscales (L,M), through CovariantUpperLML:
     romcomma_tpu's ``covariant_upper_lml``. The unit gram is built once, here,
     through the unit-gram kernel on a float32 CUDA device (the span
-    'covariant_lml.unit'); each call then costs one Cholesky forward and one
-    cholesky_inverse backward."""
+    'covariant_lml.unit'); each call then costs one Cholesky forward and a
+    backward that forms K^-1 in the factor's buffer."""
     with torch.no_grad(), tracing.span('covariant_lml.unit', on=x.device):
         unit4 = rbf_gram_covariant_unit(x, lengthscales.detach())
     yy = y.T.reshape(-1, 1)

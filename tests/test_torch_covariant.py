@@ -6,6 +6,7 @@ and run.gpr(is_covariant=None) -> run.gsa(is_covariant=True) as a whole.
 float64 unless a case says otherwise; every case states its tolerance."""
 
 import json
+import math
 import random
 import shutil
 
@@ -411,3 +412,57 @@ def test_upper_lml_matches_the_plain_reference(mask):
         expected = (torch.zeros_like(got) if name == 'raw_lengthscales'
                     else -m[name] * want[name])
         _close(got, expected, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize('L, N', [(1, 7), (3, 40), (9, 33)])
+def test_upper_lml_backward_reads_the_lower_triangle_only(monkeypatch, L, N):
+    """CovariantUpperLML's backward forms K^-1 in the factor's own buffer
+    (ops.linalg.cho_inverse_lower_) and takes the block sums from its lower
+    triangle: (a) the helper's lower triangle is cholesky_inverse's, and so
+    is the CUDA route's (a triangular inverse, then X^T X) run on the CPU
+    with its factor's upper triangle NaN; (b) the
+    value and gradients are the full-W formula's, W = alpha alpha^T - K^-1
+    from cholesky_inverse, with the factor's strict upper triangle NaN before
+    and after the inverse; (c) a second backward of a retained graph raises.
+    float64, 1e-12 relative."""
+    from romcomma_tpu_torch.ops import linalg
+    X, Y, (F, ls, noise) = _problem(seed=L + N, N=N, M=3, L=L)
+    x, y, tls = torch.tensor(X), torch.tensor(Y), torch.tensor(ls)
+    tF, tnoise = torch.tensor(F), torch.tensor(noise)
+    unit4 = gram.rbf_gram_covariant_unit(x, tls)
+    yy = y.T.reshape(-1, 1)
+    K = gp._assemble(unit4, tF, tnoise)
+    chol = torch.linalg.cholesky(K)
+    K_inv = torch.cholesky_inverse(chol)
+    lower = torch.ones_like(K, dtype=torch.bool).tril_()
+    got = linalg.cho_inverse_lower_(chol.clone())
+    _close(got[lower], K_inv[lower], rtol=1e-12, atol=1e-12 * K_inv.abs().max().item())
+    # the card's route, its cuBLAS trmm in its plain version, in blocks of 16
+    monkeypatch.setattr(linalg, 'BLOCK', 16)
+    calls = linalg.IN_PLACE_INVERSES
+    got = linalg._cho_inverse_in_place_(chol.clone().masked_fill_(~lower, math.nan))
+    assert linalg.IN_PLACE_INVERSES == calls + 1
+    _close(got[lower], K_inv[lower], rtol=1e-12, atol=1e-12 * K_inv.abs().max().item())
+
+    alpha = torch.cholesky_solve(yy, chol)
+    W4 = (alpha @ alpha.T - K_inv).view(L, N, L, N)
+    want_dF = 0.5 * (W4 * unit4).sum(dim=(1, 3))
+    want_dnoise = 0.5 * W4.diagonal(dim1=1, dim2=3).sum(-1)
+    want_value = torch.distributions.MultivariateNormal(
+        torch.zeros(L * N, dtype=torch.float64), scale_tril=chol).log_prob(yy[:, 0])
+
+    inverse = linalg.cho_inverse_lower_
+
+    def poisoned(factor):
+        factor.masked_fill_(~lower, math.nan)
+        return inverse(factor).masked_fill_(~lower, math.nan)
+
+    monkeypatch.setattr(gp, 'cho_inverse_lower_', poisoned)
+    leaves = [tF.clone().requires_grad_(True), tnoise.clone().requires_grad_(True)]
+    value = gp.CovariantUpperLML.apply(*leaves, unit4, yy)
+    dF, dnoise = torch.autograd.grad(value, leaves, retain_graph=True)
+    _close(value, want_value.item(), rtol=1e-12, atol=0)
+    for g, w in ((dF, want_dF), (dnoise, want_dnoise)):
+        _close(g, w, rtol=1e-12, atol=1e-12 * w.abs().max().item())
+    with pytest.raises(RuntimeError, match='runs once a forward'):
+        torch.autograd.grad(value, leaves)

@@ -584,3 +584,87 @@ def test_sobol_indices_with_errors_launch_the_sweep_kernel(cuda):
     assert stages and all(s['attrs']['launches'] == 2 for s in stages)
     assert all(np.isfinite(v) for part in ('S', 'T') for kind in out[part].values()
                for v in kind.values())
+
+
+def _spd_factor(n, dtype, seed=0):
+    """The lower factor (CPU, dtype) of A A^T / 64 + I, A (n, 64): condition ~50."""
+    A = torch.randn(n, 64, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    K = A @ A.T / 64 + torch.eye(n, dtype=torch.float64)
+    return torch.linalg.cholesky(K).to(dtype)
+
+
+@pytest.mark.parametrize('layout', ['row-major', 'column-major'])
+@pytest.mark.parametrize('dtype, rtol', [(torch.float64, 1e-12), (torch.float32, 1e-5)],
+                         ids=['float64', 'float32'])
+def test_in_place_inverse_matches_the_cpu(cuda, dtype, rtol, layout):
+    """cho_inverse_lower_ on the card (potri's algorithm in the factor's
+    buffer: a recursive triangular inverse on cuBLAS's trmm, then X^T X by
+    row panels) at LN = 3000, past BLOCK, against the CPU's cholesky_inverse of the same factor, over
+    the lower triangle, relative to K^-1's largest entry: float64 to 1e-12,
+    float32 to 1e-5 (a few float32 ulps at condition ~50). The factor is
+    row-major, as CovariantUpperLML's is, or column-major, as
+    torch.linalg.cholesky leaves it."""
+    from romcomma_tpu_torch.ops import linalg
+    chol = _spd_factor(3000, dtype)
+    want = torch.cholesky_inverse(chol.double()).tril_()
+    chol = chol.contiguous() if layout == 'row-major' else chol.mT.contiguous().mT
+    before = linalg.IN_PLACE_INVERSES
+    got = linalg.cho_inverse_lower_(chol.to(cuda))
+    torch.cuda.synchronize()
+    assert linalg.IN_PLACE_INVERSES == before + 1
+    got = got.double().cpu().tril_()
+    torch.testing.assert_close(got, want, rtol=0.0, atol=rtol * want.abs().max().item())
+
+
+def test_in_place_guard_keeps_cholesky_inverse(cuda, monkeypatch):
+    """A factor of IN_PLACE_MAX_ELEMENTS (2^31) elements or more keeps
+    torch.cholesky_inverse; one just below takes the in-place route. The
+    threshold is lowered to 100^2 here, not allocated."""
+    from romcomma_tpu_torch.ops import linalg
+    monkeypatch.setattr(linalg, 'IN_PLACE_MAX_ELEMENTS', 100 * 100)
+    for n, calls in ((100, 0), (99, 1)):
+        chol = _spd_factor(n, torch.float64, seed=n)
+        want = torch.cholesky_inverse(chol).tril_()
+        before = linalg.IN_PLACE_INVERSES
+        got = linalg.cho_inverse_lower_(chol.to(cuda)).cpu().tril_()
+        assert linalg.IN_PLACE_INVERSES == before + calls
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-12 * want.abs().max().item())
+
+
+def test_covariant_backward_in_the_factor_buffer(cuda):
+    """CovariantUpperLML's value and gradients on the card at L N = 3 x 1000,
+    float64, against the CPU's to 1e-10 relative; the backward forms K^-1
+    in place once and allocates less than one more (L N, L N) buffer. A
+    first value+grad on the card runs before the measured one: the autograd
+    thread's cuBLAS handle and workspace are made once a process."""
+    from romcomma_tpu_torch.models import gp
+    from romcomma_tpu_torch.ops import linalg
+    g = torch.Generator().manual_seed(4)
+    L, N, M = 3, 1000, 5
+    x, y = torch.rand(N, M, generator=g, dtype=torch.float64), torch.randn(N, L, generator=g,
+                                                                          dtype=torch.float64)
+    ls = torch.full((L, M), 0.7, dtype=torch.float64)
+    F = torch.tensor([[1.0, 0.5, 0.2], [0.5, 0.9, 0.3], [0.2, 0.3, 0.8]], dtype=torch.float64)
+    noise = torch.tensor([[0.05, 0.01, 0.0], [0.01, 0.04, 0.01], [0.0, 0.01, 0.06]],
+                         dtype=torch.float64)
+    readings = []
+    for on in (torch.device('cpu'), cuda):
+        with pinned_device(on):
+            lml = gp.covariant_upper_lml(x.to(on), ls.to(on), y.to(on))
+            leaves = [F.to(on).requires_grad_(True), noise.to(on).requires_grad_(True)]
+            if on.type == 'cuda':
+                torch.autograd.grad(lml(*leaves), leaves)
+            value = lml(*leaves)
+            if on.type == 'cuda':
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base, calls = torch.cuda.memory_allocated(), linalg.IN_PLACE_INVERSES
+            grads = torch.autograd.grad(value, leaves)
+            if on.type == 'cuda':
+                torch.cuda.synchronize()
+                assert linalg.IN_PLACE_INVERSES == calls + 1
+                grown = torch.cuda.max_memory_allocated() - base
+                assert grown < (L * N) ** 2 * 8, f'the backward allocated {grown} bytes'
+            readings.append([value.detach().cpu(), *(gr.cpu() for gr in grads)])
+    for got, want in zip(readings[1], readings[0]):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-10 * want.abs().max().item())
